@@ -1,0 +1,13 @@
+"""EdgeApproxGeo in PyTorch for NVIDIA Hopper.
+
+The paper's edge-cloud approximate query engine — geohash stratification,
+EdgeSOS sampling, mergeable per-stratum statistics and error-bounded
+finalize — with its hot loops as hand-written CUDA kernels (``kernels/``,
+sources in ``csrc/``).  Entry points run on the CUDA device unless the
+caller passes ``device="cpu"``; on CPU tensors every kernel wrapper takes
+its plain PyTorch version.
+"""
+
+from . import convert, core, data, kernels
+
+__all__ = ["convert", "core", "data", "kernels"]

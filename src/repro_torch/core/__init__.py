@@ -1,0 +1,95 @@
+"""EdgeApproxGeo core in PyTorch: the paper's query engine on one CUDA device.
+
+Layers (bottom-up):
+  geohash     — Morton-coded geohash encode/decode (int32 tensor ops)
+  stratify    — stratum tables (regular geohash grid + neighborhood map)
+  sampling    — EdgeSOS stratified sampling (Algorithm 1) from one uniform
+                vector per window
+  estimators  — mergeable per-stratum accumulators (moments, extrema,
+                quantile sketch) and the stratified estimators (eqs 1-10)
+  bounds      — deterministic min/max intervals
+  windows     — count-triggered tumbling windows with named value columns
+  query       — ``Query``/``AggSpec`` specs lowered to plans, and finalize
+  pipeline    — ``EdgeCloudPipeline.execute`` (Algorithm 2, preagg mode)
+
+Typical use::
+
+    table = make_table(*SHENZHEN_BBOX, precision=6)        # on CUDA
+    pipe = EdgeCloudPipeline(table, PipelineConfig(backend="pallas"))
+    q = Query(aggs=(AggSpec("mean", "value"), AggSpec("max", "value")),
+              group_by="neighborhood")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = pipe.execute(q, gen, window, fraction=0.8)
+    result.estimates["mean_value"].value  # (num_neighborhoods,) with MoE
+"""
+
+from . import bounds, estimators, geohash, pipeline, query, sampling, stratify, windows
+from .estimators import (
+    Accumulator,
+    Estimate,
+    Extrema,
+    QuantileSketch,
+    StratumStats,
+    accumulator,
+    estimate,
+    guarded_s2,
+    merge_stats,
+    register_accumulator,
+    sample_stats,
+    sketch_quantile,
+)
+from .pipeline import EdgeCloudPipeline, PipelineConfig, edge_sample
+from .query import AggEstimate, AggSpec, Plan, Query, QueryResult, finalize, lower
+from .sampling import SampleResult, edgesos
+from .stratify import (
+    CHICAGO_BBOX,
+    SHENZHEN_BBOX,
+    StratumTable,
+    make_table,
+    make_table_from_codes,
+    resolve_device,
+)
+from .windows import WindowBatch, count_windows
+
+__all__ = [
+    "CHICAGO_BBOX",
+    "SHENZHEN_BBOX",
+    "Accumulator",
+    "AggEstimate",
+    "AggSpec",
+    "EdgeCloudPipeline",
+    "Estimate",
+    "Extrema",
+    "PipelineConfig",
+    "Plan",
+    "QuantileSketch",
+    "Query",
+    "QueryResult",
+    "SampleResult",
+    "StratumStats",
+    "StratumTable",
+    "WindowBatch",
+    "accumulator",
+    "bounds",
+    "count_windows",
+    "edge_sample",
+    "edgesos",
+    "estimate",
+    "estimators",
+    "finalize",
+    "geohash",
+    "guarded_s2",
+    "lower",
+    "make_table",
+    "make_table_from_codes",
+    "merge_stats",
+    "pipeline",
+    "query",
+    "register_accumulator",
+    "resolve_device",
+    "sample_stats",
+    "sampling",
+    "sketch_quantile",
+    "stratify",
+    "windows",
+]

@@ -49,6 +49,10 @@ def pytest_configure(config):
         "xdist_group(name): tests that must share one pytest-xdist worker "
         "(subprocess spawners, global-hook mutators)",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the repro_torch kernels); skips where there is none",
+    )
 
 
 @pytest.fixture
