@@ -10,20 +10,31 @@ last line is printed:
    CUDA source, all started together, and the build time.
 2. Kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (the 1.2 M-tuple
-   Shenzhen window at Geohash-6), twice, bitwise reproducible.
-3. End to end: ``EdgeCloudPipeline.execute`` with ``backend="pallas"`` for
-   SRS and Bernoulli sampling on the Shenzhen window and on one Chicago
-   air-quality window (Geohash-5).  Launch counters are zeroed just before
-   the main path and read just after it.  Every run is repeated on the CPU
-   with the same uniforms (identical counters, estimates within tolerance)
-   and held against the exact full-population answer (MAPE < 10% at
-   fraction 0.8).
+   Shenzhen window at Geohash-6), twice, bitwise reproducible.  The edge
+   megakernel runs in sidx mode with three members (SRS ranks against three
+   n_k rows), in latlon mode with two members (two ROI masks, two
+   fractions), and in sidx mode once more with bf16 staging.
+3. End to end: ``EdgeCloudPipeline.execute`` with ``backend="pallas"`` and
+   ``backend="fused"`` for SRS and Bernoulli sampling on the Shenzhen
+   window and on one Chicago air-quality window (Geohash-5), plus one
+   grouped bootstrap query (var, p50, p99 with 200 replicates) on Shenzhen.
+   Launch counters are zeroed just before this path and read just after
+   it.  Every run is repeated on the card (bitwise equal) and on the CPU
+   with the same uniforms (identical counters, estimates within
+   tolerance), held against the exact full-population answer (MAPE < 10%
+   at fraction 0.8), and each fused run against its pallas twin (the same
+   sample: identical counters and per-stratum n).  The bootstrap query is
+   repeated on both devices with the same injected normals.  Then the
+   refined fused pass of three SRS members (fractions 0.2, 0.5, 0.8), with
+   its own counters, on the card against the CPU.
 4. Times: CUDA events, median of 25 launches after warm-up with the L2
    cache flushed before each, for every kernel, its plain version and the
    library call where one computes the same function (device time), and
    each kernel's host-clock time per call in a loop; host clock for each
-   method's ``execute``, and one profiled ``execute`` per method (device
-   busy time and the heaviest device ops).
+   ``execute`` on both backends in turns, with the synchronizing CUDA
+   operations one execute makes and the allocator's cudaMalloc calls, then
+   one profiled ``execute`` per method and backend (device busy time and
+   the heaviest device ops).
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -37,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -56,11 +68,17 @@ PEAK_OPS_PER_S = 67e12
 # s1/s2 of edge_reduce against its plain version: no looser than the
 # reference's own kernel test (tests/test_kernels.py, rtol=2e-6, atol=1e-3)
 ER_RTOL, ER_ATOL = 2e-6, 1e-3
-# GPU execute against CPU execute on the same uniforms: counters are exact;
-# values differ only by f32 summation order (grouped finalize sums with
-# atomics on the card), moe additionally through the m2 = s2 - n*mean^2
-# cancellation
+# GPU execute against CPU execute (and fused against pallas) on the same
+# uniforms: counters are exact; values differ only by f32 summation order
+# between devices and kernels, moe additionally through the
+# m2 = s2 - n*mean^2 cancellation
 VALUE_RTOL, MOE_RTOL = 1e-4, 1e-3
+# a quantile's bootstrap bound may move by one sketch bin (ratio e^0.08)
+# when one ulp in a weight moves a replicate across a bin edge
+BIN_RTOL = 0.0833
+BACKENDS = ("pallas", "fused")
+REFINED_FRACTIONS = (0.2, 0.5, 0.8)
+REPLICATES = 200
 
 KERNEL_INFO = {
     "geohash": ("src/repro_torch/csrc/geohash.cu",
@@ -69,6 +87,8 @@ KERNEL_INFO = {
                     "src/repro/kernels/sample_mask/sample_mask.py:59"),
     "edge_reduce": ("src/repro_torch/csrc/edge_reduce.cu",
                     "src/repro/kernels/edge_reduce/edge_reduce.py:77"),
+    "edge_megakernel": ("src/repro_torch/csrc/edge_megakernel.cu",
+                        "src/repro/kernels/edge_megakernel/edge_megakernel.py:210"),
 }
 
 
@@ -147,6 +167,20 @@ def host_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def sync_count(fn) -> int:
+    """Synchronizing CUDA operations one call of ``fn`` makes, as PyTorch's
+    sync debug mode reports them (a prototype that may miss some)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -189,6 +223,24 @@ def queries(second: str, method: str):
     return {"flat": flat, "grouped": grouped}
 
 
+def bootstrap_query():
+    from repro_torch.core import AggSpec, Query
+
+    return Query(aggs=(AggSpec("var", "value"), AggSpec("p50", "value"), AggSpec("p99", "value")),
+                 group_by="neighborhood", bootstrap_replicates=REPLICATES)
+
+
+def refined_members():
+    """Three SRS members of one fusion group with their own aggregates."""
+    from repro_torch.core import AggSpec, Query
+
+    return [Query(aggs=(AggSpec("mean", "value"), AggSpec("max", "value")), bootstrap_replicates=0),
+            Query(aggs=(AggSpec("p50", "value"), AggSpec("mean", "occupancy")),
+                  group_by="neighborhood", bootstrap_replicates=0),
+            Query(aggs=(AggSpec("sum", "occupancy"), AggSpec("min", "value")),
+                  bootstrap_replicates=0)]
+
+
 def exact_answers(query, table_cpu, cols) -> dict:
     """Full-population answers from the whole window, in float64 numpy."""
     from repro_torch.core import geohash
@@ -204,7 +256,8 @@ def exact_answers(query, table_cpu, cols) -> dict:
     else:
         grp = np.zeros(int(inside.sum()), dtype=np.int64)
         groups = range(1)
-    reducers = {"sum": np.sum, "mean": np.mean, "count": np.size, "min": np.min, "max": np.max}
+    reducers = {"sum": np.sum, "mean": np.mean, "count": np.size, "min": np.min, "max": np.max,
+                "var": np.var}
     out = {}
     for spec in query.aggs:
         y = np.asarray(cols[spec.column], dtype=np.float64)[inside]
@@ -230,19 +283,55 @@ def mape(result, truth: dict) -> float:
     return float(np.mean(np.concatenate(errs)))
 
 
-def compare_results(gpu, cpu, label: str) -> None:
+def _f64(x):
+    return x.detach().cpu().to(torch.float64)
+
+
+def compare_results(gpu, cpu, label: str, exact_n: bool = False, bounds: bool = False) -> None:
+    """Counters exact, estimates within tolerance (``bounds``: see
+    :func:`compare_estimates`); with ``exact_n`` also the per-stratum kept
+    counts of every column (the same sample)."""
     for name in ("n_sampled", "n_valid", "n_overflow"):
         g, c = int(getattr(gpu, name)), int(getattr(cpu, name))
-        check(g == c, f"{label}: {name} on the GPU {g} != CPU {c}")
-    for key, est in gpu.estimates.items():
-        ref = cpu.estimates[key]
-        for field, rtol in (("value", VALUE_RTOL), ("moe", MOE_RTOL), ("n", 0.0),
-                            ("population", 0.0)):
-            a = getattr(est, field).detach().cpu().to(torch.float64)
-            b = getattr(ref, field).to(torch.float64)
-            check(torch.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True),
-                  f"{label}: {key}.{field} GPU {a.flatten()[:4].tolist()} vs CPU "
-                  f"{b.flatten()[:4].tolist()} beyond rtol={rtol}")
+        check(g == c, f"{label}: {name} {g} != {c}")
+    if exact_n:
+        for col, kinds in gpu.stats.items():
+            check(torch.equal(_f64(kinds["moments"].n), _f64(cpu.stats[col]["moments"].n)),
+                  f"{label}: per-stratum n of {col} differ")
+    compare_estimates(gpu.estimates, cpu.estimates, label, bounds=bounds)
+
+
+def compare_estimates(got: dict, want: dict, label: str, bounds: bool = False) -> None:
+    """Values (and ``n``/``population`` exactly) within tolerance, and the
+    error bound: moe within MOE_RTOL.  With ``bounds`` (bootstrap intervals)
+    moe and the interval ends are held within VALUE_RTOL of the group's
+    value (a bound sits near the value and its f32 rounding noise scales
+    with it, not with a small moe), a quantile's within one sketch bin."""
+    for key, est in got.items():
+        ref = want[key]
+        scale = _f64(ref.value).abs()
+        fields = [("value", VALUE_RTOL, 0.0), ("n", 0.0, 0.0), ("population", 0.0, 0.0)]
+        if bounds:
+            tol = BIN_RTOL if key.startswith("p") else VALUE_RTOL  # p<q> aggregates
+            fields += [(f, 0.0, tol) for f in ("moe", "ci_low", "ci_high")]
+        else:
+            fields += [("moe", MOE_RTOL, 0.0)]
+        for field, rtol, vtol in fields:
+            a, b = _f64(getattr(est, field)).flatten(), _f64(getattr(ref, field)).flatten()
+            limit = rtol * b.abs() + vtol * torch.nan_to_num(scale.flatten(), nan=0.0, posinf=0.0)
+            # equal values (infinities included) or both NaN, else within the limit
+            close = (a == b) | (torch.isnan(a) & torch.isnan(b)) | ((a - b).abs() <= limit)
+            worst = int(torch.argmin(close.to(torch.int32)))
+            check(bool(torch.all(close)),
+                  f"{label}: {key}.{field} element {worst}: {a[worst].item()} vs "
+                  f"{b[worst].item()} (value {scale.flatten()[worst].item()}) beyond "
+                  f"rtol={rtol}, value-relative {vtol}")
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Two estimate dicts equal bit for bit (NaN of empty groups included)."""
+    return all(torch.equal(getattr(a[k], f).view(torch.int32), getattr(b[k], f).view(torch.int32))
+               for k in a for f in a[k]._fields)
 
 
 # -- phases -------------------------------------------------------------------
@@ -272,7 +361,70 @@ def kernel_inputs(table, cols, dev):
     values = torch.stack([torch.as_tensor(cols[c], device=dev) for c in list(cols)[2:]])
     return {"lat": lat, "lon": lon, "sidx": sidx, "u": u, "frac": frac,
             "values": values.contiguous(), "precision": table.precision,
-            "num_slots": table.num_slots}
+            "num_slots": table.num_slots, "codes": table.codes}
+
+
+def megakernel_cases(x) -> dict:
+    """The megakernel's inputs at the main path's widths (C = 2 columns,
+    extrema and sketch rows on the first): ``(args, kwargs)`` per case.
+
+    sidx3: sidx mode, three SRS members (ranks against the n_k rows of
+    fractions 0.2, 0.5, 0.8); latlon2: latlon mode, two members with their
+    own ROI masks and fractions 0.8, 0.5; sidx3_bf16: sidx3 with bf16
+    staging; latlon1 / sidx1 / latlon1_flat: the single-member shapes of
+    ``execute`` (Bernoulli and SRS at 0.8; the flat query ships no sketch)."""
+    from repro_torch.core import sampling
+
+    n, s = x["sidx"].shape[0], x["num_slots"]
+    lat, lon, u, vals = x["lat"], x["lon"], x["u"], x["values"]
+    ranks, counts_all = sampling.srs_ranks(u, x["sidx"], s)
+    nk = torch.stack([sampling.allocate_proportional(counts_all, f).to(torch.float32)
+                      for f in REFINED_FRACTIONS])
+    every = torch.ones(n, dtype=torch.bool, device=lat.device)
+    rois = torch.stack([(lat <= 22.70) & (lon <= 114.30), (lat >= 22.55) & (lon >= 114.00)])
+    sidx_kw = dict(ext_idx=(0,), sk_idx=(0,))
+    latlon_kw = dict(lat=lat, lon=lon, codes=x["codes"], precision=x["precision"], ext_idx=(0,),
+                     sk_idx=(0,))
+
+    def thr(*fracs):
+        return torch.tensor([[f] for f in fracs], device=lat.device).expand(len(fracs), s).contiguous()
+
+    def sidx_case(m, v, nk_rows):
+        return ((v, every[None].expand(m, n), ranks.to(torch.float32)[None].expand(m, n), nk_rows, s),
+                dict(sidx_kw, sidx=x["sidx"][None].expand(m, n)))
+
+    return {
+        "sidx3": sidx_case(3, vals, nk),
+        "latlon2": ((vals, rois, u[None].expand(2, n), thr(0.8, 0.5), s), latlon_kw),
+        "sidx3_bf16": sidx_case(3, vals.to(torch.bfloat16), nk),
+        "latlon1": ((vals, every[None], u[None], thr(FRACTION), s), latlon_kw),
+        "sidx1": sidx_case(1, vals, nk[2:]),
+        "latlon1_flat": ((vals, every[None], u[None], thr(FRACTION), s), dict(latlon_kw, sk_idx=())),
+    }
+
+
+def megakernel_bound(args, kw) -> tuple[float, str]:
+    """Least time of one megakernel call: each input read once (an expanded
+    member row once), each output written once, over the memory rate; or its
+    operations over the f32 rate, whichever is larger."""
+    vals, ok, scores, thr, s = args
+    c, n = vals.shape
+    m = ok.shape[0]
+    e, k = len(kw.get("ext_idx", ())), len(kw.get("sk_idx", ()))
+
+    def rows(t):  # member rows actually stored
+        return 1 if t.stride(0) == 0 else t.shape[0]
+
+    nbytes = n * (c * vals.element_size() + rows(ok) + 4 * rows(scores)) + 4 * thr.numel()
+    if "sidx" in kw:
+        nbytes += 4 * n * rows(kw["sidx"])
+        ops_per = 5
+    else:
+        nbytes += 8 * n + 4 * kw["codes"].numel()
+        ops_per = 20 + 3 * 13  # encode, then a 13-step binary search
+    nbytes += 4 * m * s * (2 + 2 * c + 2 * e + k * 513)
+    ops = m * n * (ops_per + 4 * c + 20 * k)  # products, sums, a log per sketch column
+    return bound_ms(nbytes, ops)
 
 
 def phase_kernel_checks(x) -> dict:
@@ -307,39 +459,79 @@ def phase_kernel_checks(x) -> dict:
         check(torch.allclose(got, ref, rtol=ER_RTOL, atol=ER_ATOL),
               f"edge_reduce: {name} beyond rtol={ER_RTOL}, atol={ER_ATOL}")
     err["edge_reduce"] = max(float((g - r).abs().max()) for g, r in zip(r1, rp))
+
+    from repro_torch.kernels.edge_megakernel import edge_megakernel, edge_megakernel_plain
+
+    cases = megakernel_cases(x)
+    err["edge_megakernel"] = 0.0
+    for label in ("sidx3", "latlon2", "sidx3_bf16"):
+        args, kw = cases[label]
+        k1, k2 = edge_megakernel(*args, **kw), edge_megakernel(*args, **kw)
+        kp = edge_megakernel_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k1, k2)),
+              f"edge_megakernel {label}: two runs differ")
+        for name, got, ref in zip(k1._fields, k1, kp):
+            if name in ("s1", "s2"):
+                check(torch.allclose(got, ref, rtol=ER_RTOL, atol=ER_ATOL),
+                      f"edge_megakernel {label}: {name} beyond rtol={ER_RTOL}, atol={ER_ATOL}")
+                err["edge_megakernel"] = max(err["edge_megakernel"], float((got - ref).abs().max()))
+            else:
+                check(torch.equal(got, ref), f"edge_megakernel {label}: {name} differs from the plain version")
+        check(float(k1.keep.sum()) > 0, f"edge_megakernel {label}: nothing kept")
     return err
+
+
+def expected_kernels(backend: str, method: str) -> set:
+    if backend == "pallas":
+        return {"geohash", "edge_reduce"} | ({"sample_mask"} if method == "bernoulli" else set())
+    # fused: Bernoulli resolves membership inside the megakernel; SRS
+    # stratifies (geohash kernel) for its rank sort first
+    return {"edge_megakernel"} | ({"geohash"} if method == "srs" else set())
 
 
 def phase_end_to_end(windows, dev) -> tuple[dict, list]:
     """The main path: reset the launch counters, run every execute on the
-    card, read the counters; then the CPU runs and the checks."""
+    card, read the counters; then the repeats and the checks."""
     from repro_torch.core import EdgeCloudPipeline, PipelineConfig
     from repro_torch.kernels import build
 
-    cfg = PipelineConfig(backend="pallas")
+    pipes = {(name, b): EdgeCloudPipeline(w[0], PipelineConfig(backend=b), device=dev)
+             for name, w in windows.items() for b in BACKENDS}
     runs = []
     build.reset_launches()
     for name, (table, cols, second) in windows.items():
-        pipe = EdgeCloudPipeline(table, cfg, device=dev)
-        for method in ("srs", "bernoulli"):
-            for qname, q in queries(second, method).items():
-                before = dict(build.LAUNCHES)
-                gen = torch.Generator(device=dev).manual_seed(SEED)
-                res = pipe.execute(q, gen, cols, FRACTION)
-                torch.cuda.synchronize()
-                moved = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
-                runs.append((name, method, qname, q, res, moved))
+        for backend in BACKENDS:
+            for method in ("srs", "bernoulli"):
+                for qname, q in queries(second, method).items():
+                    before = dict(build.LAUNCHES)
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                    res = pipes[(name, backend)].execute(q, gen, cols, FRACTION)
+                    torch.cuda.synchronize()
+                    moved = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+                    runs.append((name, backend, method, qname, q, res, moved))
+    before = dict(build.LAUNCHES)
+    boot = pipes[("shenzhen", "fused")].execute(
+        bootstrap_query(), torch.Generator(device=dev).manual_seed(SEED), windows["shenzhen"][1],
+        FRACTION)
+    torch.cuda.synchronize()
+    boot_moved = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
     launches = dict(build.LAUNCHES)
 
     lines = []
-    for name, method, qname, q, res, moved in runs:
-        label = f"{name}/{method}/{qname}"
-        expect = {"geohash", "edge_reduce"} | ({"sample_mask"} if method == "bernoulli" else set())
-        check(all(moved[k] > 0 for k in expect), f"{label}: kernels not launched: {moved}")
+    by_run = {}
+    for name, backend, method, qname, q, res, moved in runs:
+        label = f"{name}/{backend}/{method}/{qname}"
+        by_run[(name, backend, method, qname)] = res
+        check(all(moved[k] > 0 for k in expected_kernels(backend, method)),
+              f"{label}: kernels not launched: {moved}")
         table, cols, _ = windows[name]
         n = len(cols["lat"])
+        again = pipes[(name, backend)].execute(q, torch.Generator(device=dev).manual_seed(SEED),
+                                               cols, FRACTION)
+        check(same_bits(res.estimates, again.estimates), f"{label}: two executes differ")
         u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
-        cpu_pipe = EdgeCloudPipeline(table.to("cpu"), cfg, device="cpu")
+        cpu_pipe = EdgeCloudPipeline(table.to("cpu"), PipelineConfig(backend=backend), device="cpu")
         ref = cpu_pipe.execute(q, None, cols, FRACTION, uniforms=u.cpu())
         compare_results(res, ref, label)
         for est in res.estimates.values():
@@ -347,14 +539,102 @@ def phase_end_to_end(windows, dev) -> tuple[dict, list]:
                   f"{label}: estimate shape {tuple(est.value.shape)}")
         err = mape(res, exact_answers(q, table.to("cpu"), cols))
         check(err < MAPE_LIMIT, f"{label}: MAPE {err:.4f} >= {MAPE_LIMIT}")
+        same = ""
+        if backend == "fused":
+            compare_results(res, by_run[(name, "pallas", method, qname)], f"{label} vs pallas",
+                            exact_n=True)
+            same = ", the pallas run's sample"
         lines.append(f"{label}: N={n} n_sampled={int(res.n_sampled)} n_valid={int(res.n_valid)} "
                      f"n_overflow={int(res.n_overflow)} launches={moved} MAPE={err:.6f} "
-                     "(GPU == CPU counters)")
+                     f"(GPU == CPU counters, two GPU runs bitwise equal{same})")
+    lines.append(bootstrap_checks(boot, boot_moved, pipes[("shenzhen", "fused")], windows, dev))
     check(all(launches[k] > 0 for k in build.KERNELS), f"a kernel never launched: {launches}")
     return launches, lines
 
 
+def bootstrap_checks(res, moved, pipe, windows, dev) -> str:
+    """The grouped bootstrap query: kernels, reproducibility, accuracy, and
+    the card against the CPU with the same uniforms and injected normals."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+    from repro_torch.core.query import bootstrap_normals
+
+    label = "shenzhen/fused/srs/bootstrap"
+    table, cols, _ = windows["shenzhen"]
+    q = bootstrap_query()
+    check(moved["edge_megakernel"] > 0 and moved["geohash"] > 0, f"{label}: kernels {moved}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    again = pipe.execute(q, gen, cols, FRACTION)
+    check(same_bits(res.estimates, again.estimates), f"{label}: two executes differ")
+    u = torch.rand(len(cols["lat"]), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+    normals = bootstrap_normals(pipe.plan(q), table.to("cpu"), res.stats,
+                                torch.Generator().manual_seed(SEED))
+    on_card = pipe.execute(q, None, cols, FRACTION, uniforms=u, normals=normals)
+    cpu_pipe = EdgeCloudPipeline(table.to("cpu"), PipelineConfig(backend="fused"), device="cpu")
+    ref = cpu_pipe.execute(q, None, cols, FRACTION, uniforms=u.cpu(), normals=normals)
+    compare_results(on_card, ref, f"{label} GPU vs CPU", exact_n=True, bounds=True)
+    widths = []
+    for key, est in on_card.estimates.items():
+        val, lo, hi = (_f64(t) for t in (est.value, est.ci_low, est.ci_high))
+        fin = torch.isfinite(val) & (val != 0)
+        # a group whose strata are all fully sampled has a zero-width interval
+        check(bool(torch.all(hi[fin] >= lo[fin]) and torch.any(hi[fin] > lo[fin])),
+              f"{label}: {key} intervals have no width")
+        widths.append(f"{key} median width/value {float(((hi - lo) / val.abs())[fin].median()):.4f}")
+    err = mape(res, exact_answers(q, table.to("cpu"), cols))
+    check(err < MAPE_LIMIT, f"{label}: MAPE {err:.4f} >= {MAPE_LIMIT}")
+    return (f"{label}: {REPLICATES} replicates, launches={moved}, MAPE={err:.6f}; "
+            f"{'; '.join(widths)} (two GPU runs bitwise equal; GPU == CPU under injected "
+            "normals: var bounds within 1e-4 of the value, quantile bounds within a sketch "
+            "bin)")
+
+
+def phase_refined(windows, dev) -> tuple[dict, list]:
+    """The refined fused pass of three SRS members, its own path: counters
+    zeroed just before and read just after; then the card against the CPU
+    and each member against its own execute on the same uniforms."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+    from repro_torch.core.query import finalize, fuse, lower
+    from repro_torch.kernels import build
+
+    table, cols, _ = windows["shenzhen"]
+    fused = fuse([lower(q, table) for q in refined_members()])
+    pipe = EdgeCloudPipeline(table, PipelineConfig(backend="fused"), device=dev)
+    build.reset_launches()
+    members, comm = pipe.refined_pass(fused, torch.Generator(device=dev).manual_seed(SEED), cols,
+                                      REFINED_FRACTIONS)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(launches["edge_megakernel"] == 1, f"refined pass: one megakernel launch expected: {launches}")
+    u = torch.rand(len(cols["lat"]), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+    cpu_table = table.to("cpu")
+    cpu_pipe = EdgeCloudPipeline(cpu_table, PipelineConfig(backend="fused"), device="cpu")
+    cpu_members, cpu_comm = cpu_pipe.refined_pass(fused, None, cols, REFINED_FRACTIONS,
+                                                  uniforms=u.cpu())
+    check(comm == cpu_comm, "refined pass: comm bytes differ")
+    lines, sampled = [], []
+    for m, (plan, got, ref) in enumerate(zip(fused.members, members, cpu_members)):
+        label = f"refined member {m} (fraction {REFINED_FRACTIONS[m]})"
+        counters = [int(t) for t in got[1:]]
+        check(counters == [int(t) for t in ref[1:]], f"{label}: counters GPU {counters} vs CPU")
+        for col in got[0]:
+            check(torch.equal(_f64(got[0][col]["moments"].n), _f64(ref[0][col]["moments"].n)),
+                  f"{label}: per-stratum n of {col} differ")
+        compare_estimates(finalize(plan, table, got[0]), finalize(plan, cpu_table, ref[0]), label)
+        # the member's own execute at its fraction draws exactly this sample
+        own = pipe.execute(plan.query, None, cols, REFINED_FRACTIONS[m], uniforms=u)
+        check(int(own.n_sampled) == counters[0], f"{label}: own execute sampled {int(own.n_sampled)}")
+        sampled.append(counters[0])
+    check(sampled == sorted(sampled), f"refined pass: samples do not nest {sampled}")
+    lines.append(f"refined fused pass, 3 SRS members at {REFINED_FRACTIONS}: launches={launches}, "
+                 f"n_sampled={sampled}, comm_bytes={comm} (GPU == CPU counters and per-stratum n, "
+                 "estimates within tolerance, each member == its own execute)")
+    return launches, lines
+
+
 def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
+    from repro_torch.kernels.edge_megakernel import edge_megakernel, edge_megakernel_plain
     from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
     from repro_torch.kernels.geohash import geohash_encode, geohash_encode_plain
     from repro_torch.kernels.sample_mask import sample_mask, sample_mask_plain
@@ -365,6 +645,12 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
     m = x["mask"].to(torch.float32)
     my = m * x["values"]
     rows_t = torch.cat([m[None], my, my * x["values"]]).T.contiguous()
+    cases = megakernel_cases(x)
+
+    def mega(label, fn):
+        args, kw = cases[label]
+        return lambda: fn(*args, **kw)
+
     calls = {
         "geohash": (
             lambda: geohash_encode(x["lat"], x["lon"], x["precision"]),
@@ -390,6 +676,13 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
             bound_ms(n * (4 + 4 * c + 1) + 4 * s * (1 + 2 * c), n * (1 + 4 * c)),
         ),
     }
+    # the megakernel at execute's single-member shapes: latlon (Bernoulli,
+    # the JSON entry), sidx (SRS) and latlon for the flat query (no sketch);
+    # no single PyTorch call computes this function
+    for label in ("latlon1", "sidx1", "latlon1_flat"):
+        calls[f"edge_megakernel/{label}"] = (mega(label, edge_megakernel),
+                                             mega(label, edge_megakernel_plain), None,
+                                             megakernel_bound(*cases[label]))
     times, lines = {}, []
     for name, (kernel, plain, library, (b_ms, b_by)) in calls.items():
         t = {"ms": timer.ms(kernel), "call_ms": call_ms(kernel),
@@ -400,33 +693,50 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         lines.append(f"[{card}] {name}: device {t['ms']:.4f} ms, per call {t['call_ms']:.4f} ms, "
                      f"bound {b_ms:.4f} ms ({b_by}), plain {t['plain_ms']:.4f} ms, library {lib}")
+    times["edge_megakernel"] = times["edge_megakernel/latlon1"]
     lines.append(f"[{card}] edge_reduce glue: stable sort of sidx alone "
                  f"{timer.ms(lambda: torch.sort(x['sidx'], stable=True)):.4f} ms")
     return times, lines + execute_times(windows, dev, card)
 
 
 def execute_times(windows, dev, card: str) -> list:
-    """Host-clock latency of each ``execute``, and one profiled run of each
-    on the Shenzhen window: device busy time and the heaviest device ops."""
+    """Host-clock latency of each ``execute`` on both backends, timed in
+    turns (pallas, fused, fused, pallas) on one card; then one profiled run
+    per method and backend on the Shenzhen flat query: device busy time and
+    the heaviest device ops.  The profiles come last because a profiler
+    session leaves every later launch slower on the host."""
     from repro_torch.core import EdgeCloudPipeline, PipelineConfig
 
-    cfg = PipelineConfig(backend="pallas")
-    lines = []
+    lines, profiles = [], []
     for name, (table, cols, second) in windows.items():
-        pipe = EdgeCloudPipeline(table, cfg, device=dev)
+        pipes = {b: EdgeCloudPipeline(table, PipelineConfig(backend=b), device=dev)
+                 for b in BACKENDS}
         on_dev = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
-        for method in ("srs", "bernoulli"):
-            for qname, q in queries(second, method).items():
-                gen = torch.Generator(device=dev).manual_seed(SEED)
-                run_dev = functools.partial(pipe.execute, q, gen, on_dev, FRACTION)
-                t_dev = host_ms(run_dev)
-                t_host = host_ms(functools.partial(pipe.execute, q, gen, cols, FRACTION), reps=10)
-                lines.append(f"[{card}] execute {name}/{method}/{qname} N={len(cols['lat'])}: "
-                             f"{t_dev:.3f} ms (window on the card), "
-                             f"{t_host:.3f} ms (window from host numpy)")
-                if name == "shenzhen" and qname == "flat":
-                    lines.append(profile_line(run_dev, f"{name}/{method}/{qname}", card))
-    return lines
+        qs = [(f"{method}/{qname}", q) for method in ("srs", "bernoulli")
+              for qname, q in queries(second, method).items()]
+        if name == "shenzhen":
+            qs.append(("srs/bootstrap", bootstrap_query()))
+        for qlabel, q in qs:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            run = {b: functools.partial(pipe.execute, q, gen, on_dev, FRACTION)
+                   for b, pipe in pipes.items()}
+            turns = {b: [] for b in BACKENDS}
+            mallocs = {b: 0 for b in BACKENDS}
+            for b in ("pallas", "fused", "fused", "pallas"):
+                before = torch.cuda.memory_stats().get("num_device_alloc", 0)
+                turns[b].append(host_ms(run[b], reps=10))
+                mallocs[b] += torch.cuda.memory_stats().get("num_device_alloc", 0) - before
+            from_host = {b: host_ms(functools.partial(pipe.execute, q, gen, cols, FRACTION), reps=5)
+                         for b, pipe in pipes.items()}
+            syncs = {b: sync_count(run[b]) for b in BACKENDS}
+            lines.append(f"[{card}] execute {name}/{qlabel} N={len(cols['lat'])}: "
+                         + ", ".join(f"{b} {turns[b][0]:.3f} / {turns[b][1]:.3f} ms (window on "
+                                     f"the card, two turns), {from_host[b]:.3f} ms (from host "
+                                     f"numpy), {syncs[b]} syncs per execute, {mallocs[b]} cudaMalloc "
+                                     "in the timed runs" for b in BACKENDS))
+            if name == "shenzhen" and qlabel.endswith("/flat"):
+                profiles += [(run[b], f"{name}/{b}/{qlabel}") for b in BACKENDS]
+    return lines + [profile_line(fn, label, card) for fn, label in profiles]
 
 
 def profile_line(fn, label: str, card: str) -> str:
@@ -472,7 +782,11 @@ def main() -> int:
           "bitwise reproducible across two runs", flush=True)
 
     launches, lines = phase_end_to_end(windows, dev)
-    print("[phase 3] main path launches " + json.dumps(launches))
+    print("[phase 3] main path (every execute) launches " + json.dumps(launches))
+    for line in lines:
+        print("[phase 3] " + line, flush=True)
+    refined_launches, lines = phase_refined(windows, dev)
+    print("[phase 3] refined pass launches " + json.dumps(refined_launches))
     for line in lines:
         print("[phase 3] " + line, flush=True)
 

@@ -7,10 +7,14 @@ Layers (bottom-up):
                 vector per window
   estimators  — mergeable per-stratum accumulators (moments, extrema,
                 quantile sketch) and the stratified estimators (eqs 1-10)
-  bounds      — deterministic min/max intervals
+  bounds      — min/max intervals and the stratified bootstrap behind
+                var / quantile intervals
   windows     — count-triggered tumbling windows with named value columns
-  query       — ``Query``/``AggSpec`` specs lowered to plans, and finalize
-  pipeline    — ``EdgeCloudPipeline.execute`` (Algorithm 2, preagg mode)
+  query       — ``Query``/``AggSpec`` specs lowered to plans, plan fusion,
+                and finalize
+  pipeline    — ``EdgeCloudPipeline.execute`` (Algorithm 2, preagg mode) on
+                the segment, pallas or fused backend, and the refined fused
+                pass of a fusion group
 
 Typical use::
 
@@ -28,10 +32,13 @@ from .estimators import (
     Accumulator,
     Estimate,
     Extrema,
+    Groups,
     QuantileSketch,
     StratumStats,
     accumulator,
     estimate,
+    group_sum,
+    groups_of,
     guarded_s2,
     merge_stats,
     register_accumulator,
@@ -39,7 +46,21 @@ from .estimators import (
     sketch_quantile,
 )
 from .pipeline import EdgeCloudPipeline, PipelineConfig, edge_sample
-from .query import AggEstimate, AggSpec, Plan, Query, QueryResult, finalize, lower
+from .query import (
+    AggEstimate,
+    AggSpec,
+    FusedPlan,
+    Plan,
+    Query,
+    QueryResult,
+    bootstrap_normals,
+    finalize,
+    finalize_signature,
+    fuse,
+    fusion_key,
+    lower,
+    refined_preagg_bytes,
+)
 from .sampling import SampleResult, edgesos
 from .stratify import (
     CHICAGO_BBOX,
@@ -60,6 +81,8 @@ __all__ = [
     "EdgeCloudPipeline",
     "Estimate",
     "Extrema",
+    "FusedPlan",
+    "Groups",
     "PipelineConfig",
     "Plan",
     "QuantileSketch",
@@ -70,6 +93,7 @@ __all__ = [
     "StratumTable",
     "WindowBatch",
     "accumulator",
+    "bootstrap_normals",
     "bounds",
     "count_windows",
     "edge_sample",
@@ -77,7 +101,12 @@ __all__ = [
     "estimate",
     "estimators",
     "finalize",
+    "finalize_signature",
+    "fuse",
+    "fusion_key",
     "geohash",
+    "group_sum",
+    "groups_of",
     "guarded_s2",
     "lower",
     "make_table",
@@ -85,6 +114,7 @@ __all__ = [
     "merge_stats",
     "pipeline",
     "query",
+    "refined_preagg_bytes",
     "register_accumulator",
     "resolve_device",
     "sample_stats",

@@ -66,6 +66,45 @@ def segment_sum(x: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
     return out.index_add_(0, idx, x)
 
 
+class Groups(NamedTuple):
+    """A stratum -> group map with a fixed summation order.
+
+    ``index`` (S+1,) maps each slot to its group (the overflow slot to the
+    discarded group ``num_groups``); ``order`` lists slots sorted by group
+    (stable, so ascending within a group) and ``lengths`` (num_groups+1,)
+    the slots per group."""
+
+    index: torch.Tensor
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+
+def groups_of(index: torch.Tensor, num_groups: int) -> Groups:
+    """:class:`Groups` of a stratum -> group index (no host sync)."""
+    order = torch.argsort(index, stable=True)
+    lengths = torch.zeros(num_groups + 1, dtype=torch.int64, device=index.device)
+    lengths.index_add_(0, index.long(), torch.ones_like(index, dtype=torch.int64))
+    return Groups(index=index, order=order, lengths=lengths)
+
+
+def group_index(grp) -> torch.Tensor:
+    """The stratum -> group index of a :class:`Groups` or an index tensor."""
+    return grp.index if isinstance(grp, Groups) else grp
+
+
+def group_sum(x: torch.Tensor, grp, num_groups: int, dim: int = 0) -> torch.Tensor:
+    """Sum the strata axis ``dim`` of ``x`` into ``num_groups`` groups.
+
+    Each group's strata are added one after another in ascending slot
+    order, so the result is the same bits on every run and every device
+    (a float ``index_add_`` adds with atomics in a varying order on CUDA).
+    ``grp`` is a :class:`Groups` or a stratum -> group index tensor."""
+    g = grp if isinstance(grp, Groups) else groups_of(grp, num_groups)
+    xs = x.movedim(dim, 0).index_select(0, g.order)
+    out = torch.segment_reduce(xs, "sum", lengths=g.lengths, axis=0, unsafe=True)
+    return out[:num_groups].movedim(0, dim)
+
+
 def _mean_of(n: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, wsum / torch.clamp_min(n, 1.0), 0.0)
 
@@ -188,14 +227,17 @@ def guarded_s2(
     known = active & (n > 1)
     lonely = active & (n < 2) & (n < total)
 
+    if grp is not None and not isinstance(grp, Groups):
+        grp = groups_of(grp, num_groups)
+
     def reduce(x):
         if grp is None:
             return torch.sum(x)
-        return segment_sum(x, grp, num_groups + 1)[:num_groups]
+        return group_sum(x, grp, num_groups)
 
     cnt = reduce(known.to(torch.float32))
     s2_bar = reduce(torch.where(known, s2, 0.0)) / torch.clamp_min(cnt, 1.0)
-    s2_bar_k = s2_bar if grp is None else s2_bar_at(s2_bar, grp)
+    s2_bar_k = s2_bar if grp is None else s2_bar_at(s2_bar, grp.index)
     s2_eff = torch.where(lonely, s2_bar_k, s2)
     unidentified = (reduce(lonely.to(torch.float32)) > 0) & (cnt == 0)
     return s2_eff, unidentified
@@ -287,9 +329,12 @@ def sketch_bin_index(values: torch.Tensor) -> torch.Tensor:
     exactly on a bin edge can land in either neighbouring bin."""
     v = values.to(torch.float32)
     mag = torch.abs(v)
-    k = torch.floor(
-        torch.log(torch.clamp_min(mag, SKETCH_MIN_MAG) / SKETCH_MIN_MAG) / SKETCH_LOG_GAMMA
-    )
+    # divisors are 0-dim tensors on v's device: IEEE division on every
+    # device (CUDA turns division by a Python scalar into a reciprocal
+    # multiply), so the edge megakernel's bin index agrees bin for bin
+    min_mag = torch.full((), SKETCH_MIN_MAG, dtype=torch.float32, device=v.device)
+    gamma = torch.full((), SKETCH_LOG_GAMMA, dtype=torch.float32, device=v.device)
+    k = torch.floor(torch.log(torch.maximum(mag, min_mag) / min_mag) / gamma)
     k = k.clamp(0, SKETCH_BINS_PER_SIDE - 1).to(torch.int32)
     zero = SKETCH_BINS_PER_SIDE  # index of the |v| <= MIN_MAG bin
     return torch.where(
@@ -385,10 +430,11 @@ class Accumulator:
         raise NotImplementedError
 
     def interval(self, state, agg_kind, moments, *, q=None, confidence=0.95,
-                 replicates=0, grp=None, num_groups=1, **aux):
+                 normals=None, replicates=0, grp=None, num_groups=1, **aux):
         """Sampling-error CI ``(lo, hi)`` for ``agg_kind`` finalized from this
         state, or None when the kind carries no bound logic (the engine then
-        reports a zero-width interval)."""
+        reports a zero-width interval).  ``normals`` holds the aggregate's
+        bootstrap draws by name (see ``query.bootstrap_normals``)."""
         return None
 
 
@@ -446,16 +492,40 @@ class MomentsAccumulator(Accumulator):
         )
 
     def interval(self, state, agg_kind, moments, *, q=None, confidence=0.95,
-                 replicates=0, grp=None, num_groups=1, **aux):
-        """``var``: the stratified parametric bootstrap is not ported yet; a
-        ``var`` aggregate with replicates > 0 raises instead of reporting a
-        zero-width interval that would look like certainty."""
-        if agg_kind == "var" and replicates > 0:
-            raise NotImplementedError(
-                "bootstrap bounds for 'var' arrive with the bounds slice of the "
-                "port; set Query(bootstrap_replicates=0) for the point estimate"
+                 normals=None, replicates=0, grp=None, num_groups=1, sketch=None,
+                 center=None, **aux):
+        """``var``: stratified parametric bootstrap over the moment rows
+        (singleton-guarded s², see :func:`guarded_s2`) from the draws
+        ``normals["mean"]`` and ``normals["s2"]``.
+
+        When the column also ships a quantile sketch (``sketch`` is its
+        state, ``center`` the plug-in point estimate), the sketch's
+        per-stratum kurtosis widens the s² spread, and a second, fully
+        nonparametric CI is bootstrapped from the collapsed bin replicates
+        (``normals["sketch"]``); the interval is the union of both."""
+        if agg_kind != "var" or normals is None or replicates <= 0:
+            return None
+        from . import bounds  # deferred: bounds builds on this module
+
+        if grp is not None and not isinstance(grp, Groups):
+            grp = groups_of(grp, num_groups)
+        s2_eff, unidentified = guarded_s2(
+            state.n, state.total, state.m2, grp=grp, num_groups=num_groups
+        )
+        kurtosis = None if sketch is None else bounds.sketch_kurtosis(sketch.bins, state.n)
+        lo, hi = bounds.var_interval(
+            (normals["mean"], normals["s2"]), state.n, state.total, state.mean, s2_eff,
+            confidence, grp=grp, num_groups=num_groups, unidentified=unidentified,
+            kurtosis=kurtosis,
+        )
+        if sketch is not None and center is not None:
+            lo_s, hi_s = bounds.var_sketch_interval(
+                normals["sketch"], sketch.bins, state.n, state.total, confidence, center,
+                grp=grp, num_groups=num_groups,
             )
-        return None
+            lo = torch.minimum(lo, lo_s)
+            hi = torch.maximum(hi, hi_s)
+        return lo, hi
 
 
 class ExtremaAccumulator(Accumulator):
@@ -516,7 +586,7 @@ class ExtremaAccumulator(Accumulator):
         return Extrema(min=rows["min"], max=rows["max"])
 
     def interval(self, state, agg_kind, moments, *, q=None, confidence=0.95,
-                 replicates=0, grp=None, num_groups=1, **aux):
+                 normals=None, replicates=0, grp=None, num_groups=1, **aux):
         """``min``/``max``: closed-form order-statistic + Cantelli bounds from
         the rank slack of per-stratum sampling fractions (deterministic)."""
         if agg_kind not in ("min", "max"):
@@ -570,16 +640,18 @@ class QuantileSketchAccumulator(Accumulator):
         return QuantileSketch(bins=rows["bins"])
 
     def interval(self, state, agg_kind, moments, *, q=None, confidence=0.95,
-                 replicates=0, grp=None, num_groups=1, **aux):
-        """``p<q>``: the stratified multinomial bootstrap is not ported yet;
-        replicates > 0 raises rather than report false certainty."""
-        if q is not None and replicates > 0:
-            raise NotImplementedError(
-                f"bootstrap bounds for {agg_kind!r} arrive with the bounds slice "
-                "of the port; set Query(bootstrap_replicates=0) for the point "
-                "estimate"
-            )
-        return None
+                 normals=None, replicates=0, grp=None, num_groups=1, **aux):
+        """``p<q>``: stratified multinomial bootstrap over the sketch bin rows
+        (Poissonized and collapsed across strata, see :mod:`.bounds`) from the
+        draws ``normals["sketch"]``."""
+        if q is None or normals is None or replicates <= 0:
+            return None
+        from . import bounds  # deferred: bounds builds on this module
+
+        return bounds.quantile_interval(
+            normals["sketch"], state.bins, moments.n, moments.total, q, confidence,
+            grp=grp, num_groups=num_groups,
+        )
 
 
 ACCUMULATORS: dict[str, Accumulator] = {}

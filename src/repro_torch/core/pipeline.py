@@ -12,10 +12,13 @@ Edge tier  = stratify + EdgeSOS-sample the local window, then reduce every
                  portable path and the parity oracle);
                * ``"pallas"``  — one multi-column pass through the
                  edge_reduce kernel, with geohash encode and Bernoulli
-                 selection through their kernels too (the CUDA kernels on a
-                 CUDA device, their plain versions on the CPU).  The name is
-                 the reference package's, so one config selects the
-                 kernel path in both.
+                 selection through their kernels too;
+               * ``"fused"``   — the edge megakernel: membership, threshold
+                 sampling and every moment / extrema / sketch row in one
+                 pass (SRS keeps its rank sort outside the kernel).
+             The CUDA kernels run on a CUDA device, their plain versions on
+             the CPU.  The names are the reference package's, so one config
+             selects the kernel path in both.
 Cloud tier = finalize each aggregate into an ``AggEstimate`` with error
              bounds, optionally grouped by stratum / neighborhood.
 
@@ -23,7 +26,8 @@ Randomness: one ``(N,)`` uniform vector decides the whole sample (the SRS
 rank draw and the Bernoulli draw read the same vector, as in the reference
 package, where both read ``jax.random.uniform`` from one key).
 ``execute`` draws it with ``torch.rand`` from the caller's generator, or
-takes it from ``uniforms=``.
+takes it from ``uniforms=``; the bootstrap's normals follow from the same
+generator (``query.bootstrap_normals``), or from ``normals=``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,13 @@ from .sampling import SampleResult
 from .stratify import StratumTable, resolve_device
 from .windows import WindowBatch
 
-BACKENDS = ("segment", "pallas")
+BACKENDS = ("segment", "pallas", "fused")
+
+STAGING_DTYPES = ("float32", "bfloat16")
+
+# registry kinds the megakernel emits stat rows for in one pass; plans
+# referencing any other kind keep the per-kind accumulate path for it
+_FUSED_STAT_KINDS = frozenset({"moments", "extrema", "sketch"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,24 +59,33 @@ class PipelineConfig:
     """Deployment-level defaults; per-query settings live on ``Query``.
 
     ``backend`` selects the edge reduction implementation: ``"segment"``
-    (per-column reductions) or ``"pallas"`` (the kernel path).  The
-    reference's ``"fused"`` megakernel backend, raw mode and uplink codecs
-    are not part of this package yet and raise ``NotImplementedError``.
+    (per-column reductions), ``"pallas"`` (the edge_reduce kernel path) or
+    ``"fused"`` (the edge megakernel).  ``staging_dtype`` (fused backend
+    only) is the dtype value columns are staged in on their way into the
+    megakernel: ``"bfloat16"`` halves their traffic; accumulation stays f32.
+    Raw mode and uplink codecs are not part of this package yet and raise
+    ``NotImplementedError``.
     """
 
     method: str = "srs"  # srs | bernoulli | neyman
     mode: str = "preagg"
     confidence: float = 0.95
     backend: str = "segment"
+    staging_dtype: str = "float32"
     uplink_codec: str | None = None
 
     def __post_init__(self):
-        if self.backend == "fused":
-            raise NotImplementedError(
-                "backend='fused' (the edge megakernel) arrives with slice 2 of the port"
-            )
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}; got {self.backend!r}")
+        if self.staging_dtype not in STAGING_DTYPES:
+            raise ValueError(
+                f"staging_dtype must be one of {STAGING_DTYPES}; got {self.staging_dtype!r}"
+            )
+        if self.staging_dtype != "float32" and self.backend != "fused":
+            raise ValueError(
+                "staging_dtype is a fused-backend knob: reduced-precision staging "
+                "requires backend='fused' (accumulation stays f32 on every backend)"
+            )
         if self.mode == "raw":
             raise NotImplementedError("mode='raw' arrives with the raw-mode slice of the port")
         if self.mode != "preagg":
@@ -112,8 +131,11 @@ def _accumulate_columns(
     """Reduce every referenced column to its plan-declared registry states.
 
     With ``backend="pallas"`` the moment states of all columns come from one
-    edge_reduce pass; on ``"segment"`` from per-column reductions.  Other
-    kinds (extrema, sketches) accumulate through their registry entries."""
+    edge_reduce pass; with ``"fused"`` the given sample's moment, extrema and
+    sketch rows come from one megakernel pass (sidx mode, keep == mask via
+    zero scores against unit thresholds); on ``"segment"`` from per-column
+    reductions.  Kinds outside those accumulate through their registry
+    entries."""
     kinds_map = plan.column_kind_map
     stats: dict = {c: {} for c in plan.columns}
     if cfg.backend == "pallas":
@@ -123,6 +145,24 @@ def _accumulate_columns(
         cnt, s1, s2 = edge_reduce(sidx, stacked, mask, num_slots)
         for i, c in enumerate(plan.columns):
             stats[c]["moments"] = estimators.MOMENTS.from_kernel_rows(cnt, s1[i], s2[i], counts)
+    elif cfg.backend == "fused":
+        from ..kernels.edge_megakernel import edge_megakernel
+
+        ext_idx, sk_idx = _kernel_layout(plan.columns, kinds_map)
+        dev = mask.device
+        res = edge_megakernel(
+            _stack_staged(cfg, plan.columns, cols),
+            mask[None],
+            torch.zeros((1, mask.shape[0]), dtype=torch.float32, device=dev),
+            torch.ones((1, num_slots), dtype=torch.float32, device=dev),
+            num_slots,
+            sidx=sidx[None],
+            ext_idx=ext_idx,
+            sk_idx=sk_idx,
+        )
+        stats = _stats_from_mega(
+            plan.columns, kinds_map, res, 0, res.keep[0], counts, plan.columns, ext_idx, sk_idx
+        )
     else:
         for c in plan.columns:
             stats[c]["moments"] = estimators.MOMENTS.accumulate(
@@ -137,22 +177,83 @@ def _accumulate_columns(
     return stats
 
 
+def _plan_fusable(plan: Plan) -> bool:
+    """True when every referenced kind has megakernel stat rows: the
+    condition for serving the plan from the single-traversal pass."""
+    kinds_map = plan.column_kind_map
+    return all(set(kinds_map[c]) <= _FUSED_STAT_KINDS for c in plan.columns)
+
+
+def _kernel_layout(columns, kinds_map) -> tuple[tuple, tuple]:
+    """Column positions that get extrema / sketch rows in the megakernel."""
+    ext_idx = tuple(i for i, c in enumerate(columns) if "extrema" in kinds_map.get(c, ()))
+    sk_idx = tuple(i for i, c in enumerate(columns) if "sketch" in kinds_map.get(c, ()))
+    return ext_idx, sk_idx
+
+
+def _stack_staged(cfg: PipelineConfig, columns, cols) -> torch.Tensor:
+    """Stack value columns in the configured staging dtype (fused backend)."""
+    dt = torch.bfloat16 if cfg.staging_dtype == "bfloat16" else torch.float32
+    return torch.stack([cols[c] for c in columns]).to(dt).contiguous()
+
+
+def _stats_from_mega(columns, kinds_map, res, m, keep, counts, union_cols, ext_idx, sk_idx) -> dict:
+    """Adopt member ``m``'s megakernel stat rows into registry states.
+
+    ``columns`` is the member's own column list; positions resolve against
+    ``union_cols`` (the kernel's value-column layout, a superset for refined
+    fused groups).  ``keep`` is the per-slot kept-count row to use as the
+    moment count (callers patch latlon-mode overflow residuals in first)."""
+    pos = {c: i for i, c in enumerate(union_cols)}
+    e_pos = {i: e for e, i in enumerate(ext_idx)}
+    k_pos = {i: k for k, i in enumerate(sk_idx)}
+    stats: dict = {}
+    for c in columns:
+        i = pos[c]
+        d = {"moments": estimators.MOMENTS.from_kernel_rows(keep, res.s1[m, i], res.s2[m, i], counts)}
+        for kind in kinds_map.get(c, ()):
+            if kind == "extrema":
+                d[kind] = estimators.EXTREMA.from_kernel_rows(
+                    res.mins[m, e_pos[i]], res.maxs[m, e_pos[i]]
+                )
+            elif kind == "sketch":
+                d[kind] = estimators.SKETCH.from_kernel_rows(res.bins[m, k_pos[i]])
+        stats[c] = d
+    return stats
+
+
+def _add_to_last(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``x`` with ``delta`` added to its last (overflow) slot."""
+    return torch.cat([x[:-1], (x[-1] + delta).reshape(1).to(x.dtype)])
+
+
 def _edge_program(plan: Plan, table: StratumTable, cfg: PipelineConfig, u, lat, lon, cols,
                   valid, fraction):
     """The lowered edge half of a preagg plan on one edge node.
 
     Returns ``(stats, n_sampled, n_valid, n_overflow, n_truncated,
     comm_bytes)`` where ``stats`` maps column -> ``{kind: state}``."""
+    q = plan.query
     ok = valid & aqp.roi_mask(plan, table, lat, lon)
-    sidx, sample = edge_sample(
-        u, table, lat, lon, ok, fraction, plan.query.method, backend=cfg.backend
-    )
+    n_truncated = torch.zeros((), dtype=torch.int32, device=lat.device)
+    comm = torch.tensor(aqp.preagg_bytes(plan, table.num_slots), dtype=torch.int32).to(lat.device)
+    if (
+        cfg.backend == "fused"
+        and _plan_fusable(plan)
+        and q.method in ("srs", "bernoulli")
+        # latlon-mode overflow residuals need a scalar threshold; a
+        # per-stratum Bernoulli fraction falls back to the two-pass path
+        and (q.method == "srs" or np.ndim(fraction) == 0)
+    ):
+        stats, n_sampled, n_valid, n_overflow = _fused_member_program(
+            plan, table, cfg, u, lat, lon, cols, ok, valid, fraction
+        )
+        return stats, n_sampled, n_valid, n_overflow, n_truncated, comm
+    sidx, sample = edge_sample(u, table, lat, lon, ok, fraction, q.method, backend=cfg.backend)
     stats, n_sampled, n_valid, n_overflow = _member_reduce(
         plan, table, cfg, cols, sidx, sample.mask, ok, valid, sample.counts
     )
-    comm = torch.tensor(aqp.preagg_bytes(plan, table.num_slots), dtype=torch.int32)
-    n_truncated = torch.zeros((), dtype=torch.int32, device=lat.device)
-    return stats, n_sampled, n_valid, n_overflow, n_truncated, comm.to(lat.device)
+    return stats, n_sampled, n_valid, n_overflow, n_truncated, comm
 
 
 def _member_reduce(plan: Plan, table: StratumTable, cfg: PipelineConfig, cols, sidx, mask, ok,
@@ -169,6 +270,185 @@ def _consolidate(stats, n_sampled, ok, valid, counts):
     n_valid = torch.sum(ok, dtype=torch.int32)
     n_overflow = counts[-1] + torch.sum(valid & ~ok, dtype=torch.int32)
     return stats, n_sampled, n_valid, n_overflow
+
+
+def _fused_member_program(plan: Plan, table: StratumTable, cfg: PipelineConfig, u, lat, lon,
+                          cols, ok, valid, fraction):
+    """One plan's preagg reduce as a single megakernel traversal.
+
+    The kernel's threshold compare reproduces EdgeSOS sampling decision for
+    decision while it emits every fused stat row:
+
+      * ``bernoulli``: the window's uniforms are the scores and the scalar
+        fraction the per-slot threshold; membership resolves in the kernel
+        from lat/lon against the code table (latlon mode).  Tuples outside
+        the table land in no slot: their stat rows stay zero (the query
+        layer zeroes overflow before estimating) and the overflow counts
+        are rebuilt as residuals against direct sums.
+      * ``srs``: exact ranks need the per-stratum sort, so stratify and
+        :func:`~.sampling.srs_ranks` run outside; ranks against ``n_k`` is
+        the in-kernel compare (exact in f32 below 2**24), and sidx mode
+        covers every slot, overflow included.
+    """
+    from ..kernels.edge_megakernel import edge_megakernel
+
+    q = plan.query
+    slots = table.num_slots
+    kinds_map = plan.column_kind_map
+    ext_idx, sk_idx = _kernel_layout(plan.columns, kinds_map)
+    vals = _stack_staged(cfg, plan.columns, cols)
+    if q.method == "bernoulli":
+        frac = torch.as_tensor(fraction, dtype=torch.float32).to(u.device)
+        thr = frac.expand(1, slots).contiguous()
+        res = edge_megakernel(
+            vals, ok[None], u[None], thr, slots,
+            lat=lat, lon=lon, codes=table.codes, precision=table.precision,
+            ext_idx=ext_idx, sk_idx=sk_idx,
+        )
+        n_sampled = torch.sum(ok & (u < frac), dtype=torch.int32)
+        counts = res.pop[0].to(torch.int32)
+        counts = _add_to_last(counts, torch.sum(ok, dtype=torch.int32) - torch.sum(counts))
+        keep = _add_to_last(res.keep[0], n_sampled.to(torch.float32) - torch.sum(res.keep[0]))
+    else:
+        sidx = torch.where(ok, table.assign(lat, lon, backend=cfg.backend), table.num_strata)
+        ranks, counts_all = sampling.srs_ranks(u, sidx, slots)
+        n_k = sampling.allocate_proportional(counts_all, fraction)
+        res = edge_megakernel(
+            vals, ok[None], ranks.to(torch.float32)[None], n_k.to(torch.float32)[None], slots,
+            sidx=sidx[None], ext_idx=ext_idx, sk_idx=sk_idx,
+        )
+        counts = res.pop[0].to(torch.int32)
+        keep = res.keep[0]
+        n_sampled = torch.sum(keep).to(torch.int32)
+    stats = _stats_from_mega(
+        plan.columns, kinds_map, res, 0, keep, counts, plan.columns, ext_idx, sk_idx
+    )
+    return _consolidate(stats, n_sampled, ok, valid, counts)
+
+
+def _fused_edge_program(fused: aqp.FusedPlan, table: StratumTable, cfg: PipelineConfig, u, lat,
+                        lon, cols: Mapping[str, torch.Tensor], valid, fractions):
+    """The refined fused edge pass: per-member nested samples from one
+    shared stratify and one shared uniform draw ``u`` (preagg mode).
+
+    Each member keeps the shared sample thinned to its own fraction and,
+    for Bernoulli groups, masked to its own ROI:
+
+      * ``srs`` groups share the per-stratum random ranks: member m keeps
+        ``ranks < n_k(fractions[m])``, exactly the SRS its own ``execute``
+        draws from the same uniforms, nested inside the group-max sample;
+        ``neyman`` is refused (its allocation needs per-stratum stddev);
+      * ``bernoulli`` groups share the uniforms: member m keeps
+        ``u < fractions[m]`` within its own ROI, so differing-ROI members
+        fuse into this one pass.
+
+    Returns ``(members_out, comm)`` with ``members_out[m] = (stats,
+    n_sampled, n_valid, n_overflow)``.
+    """
+    shared = fused.shared
+    q = shared.query
+    if q.method not in ("srs", "bernoulli"):
+        raise NotImplementedError(
+            f"refined fused pass supports srs|bernoulli members, not {q.method!r}; neyman "
+            "allocation needs per-stratum stddev threading"
+        )
+    fractions = torch.as_tensor(fractions, dtype=torch.float32).to(u.device)
+    if cfg.backend == "fused" and all(_plan_fusable(p) for p in fused.members):
+        return _fused_refined_mega(fused, table, cfg, u, lat, lon, cols, valid, fractions)
+    slots = table.num_slots
+    sidx_raw = table.assign(lat, lon, backend=cfg.backend)
+    members_out = []
+    if q.method == "bernoulli":
+        for m, plan_m in enumerate(fused.members):
+            ok = valid & aqp.roi_mask(plan_m, table, lat, lon)
+            sidx = torch.where(ok, sidx_raw, table.num_strata)
+            mask = (u < fractions[m]) & ok
+            counts = sampling.segment_count(sidx, ok, slots)
+            members_out.append(
+                _member_reduce(plan_m, table, cfg, cols, sidx, mask, ok, valid, counts)
+            )
+    else:
+        ok = valid & aqp.roi_mask(shared, table, lat, lon)
+        sidx = torch.where(ok, sidx_raw, table.num_strata)
+        ranks, counts_all = sampling.srs_ranks(u, sidx, slots)
+        counts = sampling.segment_count(sidx, ok, slots)
+        for m, plan_m in enumerate(fused.members):
+            # allocation over the raw per-slot counts, as edgesos does
+            n_k = sampling.allocate_proportional(counts_all, fractions[m])
+            mask = (ranks < n_k[sidx]) & ok
+            members_out.append(
+                _member_reduce(plan_m, table, cfg, cols, sidx, mask, ok, valid, counts)
+            )
+    return tuple(members_out), aqp.refined_preagg_bytes(fused, slots)
+
+
+def _fused_refined_mega(fused: aqp.FusedPlan, table: StratumTable, cfg: PipelineConfig, u, lat,
+                        lon, cols, valid, fractions):
+    """The refined fused pass as one megakernel traversal for all members.
+
+    The kernel's member axis carries the per-member thresholds (Bernoulli:
+    each member's fraction; SRS: each member's ``n_k`` allocation) and, for
+    Bernoulli groups, each member's ROI mask, so the window's value columns
+    are read once for the whole group.  Sampling matches
+    :func:`_fused_edge_program`'s two-pass body decision for decision;
+    Bernoulli runs in latlon mode with the overflow-residual reconstruction
+    of :func:`_fused_member_program`."""
+    from ..kernels.edge_megakernel import edge_megakernel
+
+    shared = fused.shared
+    q = shared.query
+    slots = table.num_slots
+    members = fused.members
+    m_count = len(members)
+    n = u.shape[0]
+    # union value-column layout: every member's stats slice out of one pass
+    union_cols: list = []
+    union_kinds: dict = {}
+    for p in members:
+        for c in p.columns:
+            if c not in union_kinds:
+                union_cols.append(c)
+                union_kinds[c] = set()
+            union_kinds[c] |= set(p.column_kind_map[c])
+    ext_idx, sk_idx = _kernel_layout(union_cols, union_kinds)
+    vals = _stack_staged(cfg, union_cols, cols)
+    members_out = []
+    if q.method == "bernoulli":
+        ok_m = torch.stack([valid & aqp.roi_mask(p, table, lat, lon) for p in members])
+        thr = fractions[:, None].expand(m_count, slots).contiguous()
+        res = edge_megakernel(
+            vals, ok_m, u[None].expand(m_count, n), thr, slots,
+            lat=lat, lon=lon, codes=table.codes, precision=table.precision,
+            ext_idx=ext_idx, sk_idx=sk_idx,
+        )
+        for m, plan_m in enumerate(members):
+            ok = ok_m[m]
+            n_sampled = torch.sum(ok & (u < fractions[m]), dtype=torch.int32)
+            counts = res.pop[m].to(torch.int32)
+            counts = _add_to_last(counts, torch.sum(ok, dtype=torch.int32) - torch.sum(counts))
+            keep = _add_to_last(res.keep[m], n_sampled.to(torch.float32) - torch.sum(res.keep[m]))
+            stats = _stats_from_mega(plan_m.columns, plan_m.column_kind_map, res, m, keep, counts,
+                                     union_cols, ext_idx, sk_idx)
+            members_out.append(_consolidate(stats, n_sampled, ok, valid, counts))
+    else:  # srs: shared ROI + stratify + ranks, per-member n_k thresholds
+        ok = valid & aqp.roi_mask(shared, table, lat, lon)
+        sidx = torch.where(ok, table.assign(lat, lon, backend=cfg.backend), table.num_strata)
+        ranks, counts_all = sampling.srs_ranks(u, sidx, slots)
+        thr = torch.stack([
+            sampling.allocate_proportional(counts_all, fractions[m]).to(torch.float32)
+            for m in range(m_count)
+        ])
+        res = edge_megakernel(
+            vals, ok[None].expand(m_count, n), ranks.to(torch.float32)[None].expand(m_count, n),
+            thr, slots, sidx=sidx[None].expand(m_count, n), ext_idx=ext_idx, sk_idx=sk_idx,
+        )
+        for m, plan_m in enumerate(members):
+            counts = res.pop[m].to(torch.int32)
+            n_sampled = torch.sum(res.keep[m]).to(torch.int32)
+            stats = _stats_from_mega(plan_m.columns, plan_m.column_kind_map, res, m, res.keep[m],
+                                     counts, union_cols, ext_idx, sk_idx)
+            members_out.append(_consolidate(stats, n_sampled, ok, valid, counts))
+    return tuple(members_out), aqp.refined_preagg_bytes(fused, slots)
 
 
 class EdgeCloudPipeline:
@@ -220,30 +500,34 @@ class EdgeCloudPipeline:
         # np.array copies, so read-only host buffers convert without a warning
         return torch.as_tensor(np.array(x), device=self.device).to(dtype).contiguous()
 
+    def _uniforms(self, generator, n: int, uniforms) -> torch.Tensor:
+        if uniforms is None:
+            return torch.rand(n, generator=generator, device=self.device)
+        u = self._tensor(uniforms, torch.float32)
+        if u.shape != (n,):
+            raise ValueError(f"uniforms must have shape ({n},); got {tuple(u.shape)}")
+        return u
+
     def execute(self, query: Query, generator: torch.Generator | None, window, fraction=1.0,
-                *, uniforms=None) -> QueryResult:
+                *, uniforms=None, normals=None) -> QueryResult:
         """Evaluate a declarative query over one window on one edge node.
 
         ``window`` is a :class:`WindowBatch` or a mapping with ``lat``,
         ``lon``, optional ``valid``, and one array per referenced column.
         The window's ``(N,)`` uniforms come from ``torch.rand`` with
         ``generator`` (a generator on the pipeline's device, or None for the
-        default one) unless ``uniforms`` supplies them.
+        default one) unless ``uniforms`` supplies them; the bootstrap's
+        normals then come from the same generator, in the order of
+        :func:`~.query.bootstrap_normals`, unless ``normals`` supplies them.
         """
         plan = self.plan(query)
         lat, lon, cols, valid = self._window_arrays(window, plan)
-        n = lat.shape[0]
-        if uniforms is None:
-            u = torch.rand(n, generator=generator, device=self.device)
-        else:
-            u = self._tensor(uniforms, torch.float32)
-            if u.shape != (n,):
-                raise ValueError(f"uniforms must have shape ({n},); got {tuple(u.shape)}")
+        u = self._uniforms(generator, lat.shape[0], uniforms)
         stats, n_sampled, n_valid, n_overflow, n_truncated, comm = _edge_program(
             plan, self.table, self.config, u, lat, lon, cols, valid, fraction
         )
         return QueryResult(
-            estimates=aqp.finalize(plan, self.table, stats),
+            estimates=aqp.finalize(plan, self.table, stats, generator, normals=normals),
             stats=stats,
             n_sampled=n_sampled,
             n_valid=n_valid,
@@ -252,3 +536,15 @@ class EdgeCloudPipeline:
             comm_bytes=comm,
             n_dropped=int(getattr(window, "n_dropped", 0)),
         )
+
+    def refined_pass(self, fused: aqp.FusedPlan, generator: torch.Generator | None, window,
+                     fractions, *, uniforms=None):
+        """The refined fused edge pass of a fusion group over one window:
+        ``(members_out, comm_bytes)`` with ``members_out[m] = (stats,
+        n_sampled, n_valid, n_overflow)`` for member ``m`` at
+        ``fractions[m]`` (see :func:`_fused_edge_program`).  Each member's
+        states finalize with ``query.finalize(fused.members[m], ...)``."""
+        lat, lon, cols, valid = self._window_arrays(window, fused.shared)
+        u = self._uniforms(generator, lat.shape[0], uniforms)
+        return _fused_edge_program(fused, self.table, self.config, u, lat, lon, cols, valid,
+                                   fractions)

@@ -22,9 +22,13 @@ Aggregate kinds and their error semantics:
                accuracy).
 
 ``var`` and ``p<q>`` take their confidence intervals from a stratified
-bootstrap that this package does not carry yet: with
-``bootstrap_replicates=0`` they report zero-width point estimates, and with
-replicates > 0 finalize raises ``NotImplementedError``.
+bootstrap (:mod:`.bounds`) of ``Query.bootstrap_replicates`` replicates (0:
+zero-width point estimates).  Its standard-normal draws come from a
+``torch.Generator`` in the order :func:`bootstrap_normals` documents, or are
+injected as ``finalize(..., normals=...)``.
+
+Plans that share a sampling signature (:func:`fusion_key`) fuse into one
+edge pass (:func:`fuse`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from . import estimators, geohash
-from .estimators import segment_sum, z_value
+from .estimators import SKETCH_NUM_BINS, Groups, group_sum, z_value
 from .stratify import StratumTable
 
 KINDS = ("sum", "mean", "count", "min", "max", "var")
@@ -184,6 +188,16 @@ class Plan:
     def column_kind_map(self) -> dict[str, tuple[str, ...]]:
         return dict(self.column_kinds)
 
+    @property
+    def extrema_columns(self) -> tuple[str, ...]:
+        """Columns some min/max aggregate reads."""
+        return tuple(c for c, kinds in self.column_kinds if "extrema" in kinds)
+
+    @property
+    def sketch_columns(self) -> tuple[str, ...]:
+        """Columns some quantile aggregate reads."""
+        return tuple(c for c, kinds in self.column_kinds if "sketch" in kinds)
+
 
 def lower(query: Query, table: StratumTable) -> Plan:
     """Lower a declarative Query against a stratum table into a Plan."""
@@ -222,6 +236,123 @@ def lower(query: Query, table: StratumTable) -> Plan:
         num_groups=num_groups,
         roi_prefix_code=prefix_code,
     )
+
+
+def fusion_key(plan: Plan) -> tuple:
+    """Hashable sampling signature of a plan.
+
+    Two plans with equal fusion keys draw identical sampling decisions from
+    the same uniforms and fraction: the EdgeSOS mask depends only on the
+    stratum membership of eligible tuples (method + ROI), and the uplink on
+    the transmission mode.  Aggregates, columns, group-by and confidence
+    only shape accumulation and finalize, which fuse freely.
+
+    Bernoulli keep-decisions are per-tuple uniforms, independent of stratum
+    membership and hence of any ROI, so differing-ROI Bernoulli preagg
+    plans share one pass with per-member accumulation masks: the ROI drops
+    out of their key.
+    """
+    q = plan.query
+    if q.method == "bernoulli" and q.mode == "preagg":
+        return (q.method, q.mode)
+    return (q.method, q.mode, q.roi)
+
+
+def finalize_signature(plan: Plan) -> tuple:
+    """Hashable finalize signature of a plan: exactly the inputs
+    :func:`finalize` reads (never the sampling method, mode or ROI), so
+    plans with equal signatures run the same cloud-side program over
+    same-shaped states."""
+    q = plan.query
+    return (
+        q.aggs,
+        q.group_by,
+        q.confidence,
+        q.bootstrap_replicates,
+        plan.columns,
+        plan.column_kinds,
+        plan.num_groups,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """A set of lowered queries served by one shared edge pass.
+
+    ``shared`` is a carrier plan whose column / accumulator-kind sets are the
+    unions over ``members``: its edge program produces every state any
+    member's finalize reads."""
+
+    members: tuple[Plan, ...]
+    shared: Plan
+
+    @property
+    def columns(self) -> tuple[str, ...]:
+        return self.shared.columns
+
+    @property
+    def extrema_columns(self) -> tuple[str, ...]:
+        return self.shared.extrema_columns
+
+    @property
+    def mode(self) -> str:
+        return self.shared.query.mode
+
+    @property
+    def cross_roi(self) -> bool:
+        """True when members carry differing ROIs (Bernoulli cross-signature
+        fusion): the carrier samples unfiltered and each member applies its
+        own ROI as an accumulation mask in the refined edge program."""
+        return len({p.query.roi for p in self.members}) > 1
+
+
+def fuse(plans) -> FusedPlan:
+    """Fuse lowered plans that share a sampling signature into one pass.
+
+    Unions the referenced columns (order-preserving across members), the
+    per-aggregate and the per-column accumulator kinds.  Raises
+    ``ValueError`` when the fusion keys (:func:`fusion_key`) differ.
+    Bernoulli preagg members may carry differing ROIs
+    (:attr:`FusedPlan.cross_roi`)."""
+    plans = tuple(plans)
+    if not plans:
+        raise ValueError("fuse needs at least one plan")
+    keys = {fusion_key(p) for p in plans}
+    if len(keys) != 1:
+        raise ValueError(
+            "cannot fuse plans with differing sampling signatures "
+            f"(method, mode, roi): {sorted(keys, key=repr)}"
+        )
+    columns = tuple(dict.fromkeys(c for p in plans for c in p.columns))
+    col_kinds: dict[str, tuple[str, ...]] = {c: () for c in columns}
+    accs: dict[str, tuple[str, ...]] = {}
+    for p in plans:
+        for agg_key, kinds in p.accumulators:
+            accs[agg_key] = tuple(dict.fromkeys(accs.get(agg_key, ()) + tuple(kinds)))
+        for c, kinds in p.column_kinds:
+            col_kinds[c] = tuple(dict.fromkeys(col_kinds[c] + tuple(kinds)))
+    q0 = plans[0].query
+    # a cross-ROI (Bernoulli) carrier samples unfiltered
+    rois = {p.query.roi for p in plans}
+    shared_roi, prefix_code = (
+        (q0.roi, plans[0].roi_prefix_code) if len(rois) == 1 else (None, None)
+    )
+    carrier = Query(
+        aggs=tuple(AggSpec("mean", c) for c in columns),
+        roi=shared_roi,
+        confidence=q0.confidence,
+        method=q0.method,
+        mode=q0.mode,
+    )
+    shared = Plan(
+        query=carrier,
+        columns=columns,
+        accumulators=tuple(accs.items()),
+        column_kinds=tuple(col_kinds.items()),
+        num_groups=1,
+        roi_prefix_code=prefix_code,
+    )
+    return FusedPlan(members=plans, shared=shared)
 
 
 def roi_mask(plan: Plan, table: StratumTable, lat: torch.Tensor, lon: torch.Tensor) -> torch.Tensor:
@@ -271,7 +402,7 @@ def zero_overflow_column(accs: dict) -> dict:
     return estimators.zero_overflow_accs(accs)
 
 
-def _group_index(plan: Plan, table: StratumTable) -> torch.Tensor:
+def _group_index(plan: Plan, table: StratumTable) -> Groups:
     """stratum slot -> group id; overflow maps to an extra discarded group."""
     s = table.num_strata
     if plan.query.group_by == "stratum":
@@ -279,11 +410,12 @@ def _group_index(plan: Plan, table: StratumTable) -> torch.Tensor:
     else:
         grp = table.neighborhood[:s]
     tail = torch.tensor([plan.num_groups], dtype=torch.int32, device=table.device)
-    return torch.cat([grp, tail])
+    return estimators.groups_of(torch.cat([grp, tail]), plan.num_groups)
 
 
-def _gsum(x: torch.Tensor, grp: torch.Tensor, num: int) -> torch.Tensor:
-    return segment_sum(x, grp, num + 1)[:num]
+def _gsum(x: torch.Tensor, grp: Groups, num: int) -> torch.Tensor:
+    """Strata (dim 0) -> groups, in a fixed order on every device."""
+    return group_sum(x, grp, num, dim=0)
 
 
 def _bounded_estimate(value, lo, hi, n_g, pop_g) -> AggEstimate:
@@ -317,14 +449,56 @@ def _bounded_estimate(value, lo, hi, n_g, pop_g) -> AggEstimate:
     )
 
 
-def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> dict:
+def bootstrap_normals(plan: Plan, table: StratumTable, stats: dict[str, dict],
+                      generator: torch.Generator | None = None) -> dict:
+    """The bootstrap's standard-normal draws for every aggregate that takes
+    them, in the fixed order :func:`finalize` consumes them.
+
+    Returns ``{agg_index: {name: tensor}}`` on the table's device.  For each
+    aggregate in ``plan.query.aggs`` order, with ``R`` replicates, ``S+1``
+    slots and ``W`` = ``(SKETCH_NUM_BINS,)``, or ``(num_groups,
+    SKETCH_NUM_BINS)`` when grouped:
+
+      * ``var``: ``"mean"`` (R, S+1), then ``"s2"`` (R, S+1), then, when the
+        column's states carry a sketch, ``"sketch"`` (R, *W);
+      * ``p<q>``: ``"sketch"`` (R, *W).
+
+    Each is one ``torch.randn`` call on ``generator`` in exactly this order
+    (no draws when ``bootstrap_replicates`` is 0)."""
+    q = plan.query
+    r = q.bootstrap_replicates
+    if r <= 0:
+        return {}
+    dev = table.device
+    wb = (plan.num_groups, SKETCH_NUM_BINS) if q.group_by is not None else (SKETCH_NUM_BINS,)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    out: dict[int, dict[str, torch.Tensor]] = {}
+    for i, spec in enumerate(q.aggs):
+        if spec.kind == "var":
+            out[i] = {"mean": draw(r, table.num_slots), "s2": draw(r, table.num_slots)}
+            if "sketch" in stats[spec.column]:
+                out[i]["sketch"] = draw(r, *wb)
+        elif quantile_of(spec.kind) is not None:
+            out[i] = {"sketch": draw(r, *wb)}
+    return out
+
+
+def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict],
+             generator: torch.Generator | None = None, *, normals: dict | None = None) -> dict:
     """Cloud-side consolidation: merged accumulator states -> AggEstimates.
 
     ``stats`` maps each column to its ``{kind: state}`` registry dict; every
     AggSpec is evaluated, grouping strata into the plan's result groups.
     For ``group_by=None`` sum/mean evaluate :func:`estimators.estimate`.
-    ``var`` and ``p<q>`` with ``bootstrap_replicates > 0`` raise
-    ``NotImplementedError`` (their bootstrap bounds are not ported yet).
+
+    ``var`` and ``p<q>`` take bootstrap intervals (:mod:`.bounds`) from
+    standard normals: ``normals`` as :func:`bootstrap_normals` lays them out,
+    or, when None, drawn by :func:`bootstrap_normals` from ``generator``
+    (None: PyTorch's default generator).  Group sums run in a fixed order,
+    so the same states and draws give the same bits on every run.
     """
     q = plan.query
     grouped = q.group_by is not None
@@ -332,11 +506,14 @@ def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> dict:
     z = z_value(q.confidence).to(table.device)
     grp = _group_index(plan, table) if grouped else None
     replicates = q.bootstrap_replicates
+    if normals is None:
+        normals = bootstrap_normals(plan, table, stats, generator)
 
     out: dict[str, AggEstimate] = {}
     full_est: dict[str, estimators.Estimate] = {}
     zeroed = {c: zero_overflow_column(stats[c]) for c in plan.columns}
-    for spec in q.aggs:
+    for i, spec in enumerate(q.aggs):
+        draws = {k: v.to(table.device) for k, v in normals.get(i, {}).items()}
         accs = zeroed[spec.column]
         cs = accs["moments"]
         n, N = cs.n, cs.total
@@ -370,7 +547,7 @@ def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> dict:
             val = estimators.sketch_quantile(wb_g, qv)
             ci = estimators.accumulator("sketch").interval(
                 accs["sketch"], spec.kind, cs, q=qv, confidence=q.confidence,
-                replicates=replicates, grp=grp, num_groups=num,
+                normals=draws, replicates=replicates, grp=grp, num_groups=num,
             )
             if ci is None:
                 ci = (val, val)
@@ -384,7 +561,7 @@ def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> dict:
                 fill = torch.inf if spec.kind == "min" else -torch.inf
                 seg = torch.full((num + 1,), fill, dtype=field.dtype, device=field.device)
                 red = "amin" if spec.kind == "min" else "amax"
-                val = seg.scatter_reduce(0, grp.long(), field, reduce=red)[:num]
+                val = seg.scatter_reduce(0, grp.index.long(), field, reduce=red)[:num]
             else:
                 val = torch.amin(field) if spec.kind == "min" else torch.amax(field)
             ci = estimators.accumulator("extrema").interval(
@@ -445,9 +622,12 @@ def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> dict:
             ey2_k = torch.where(active, N * (s2_k + cs.mean * cs.mean), 0.0)
             ey2_g = _gsum(ey2_k, grp, num) if grouped else torch.sum(ey2_k)
             val = torch.clamp_min(ey2_g / torch.clamp_min(covered_g, 1.0) - mean_g * mean_g, 0.0)
+            # a sketch shipped for this column sharpens the CI: kurtosis-
+            # widened s² spread plus a nonparametric bin-replicate channel
             ci = estimators.accumulator("moments").interval(
-                cs, "var", cs, confidence=q.confidence,
+                cs, "var", cs, confidence=q.confidence, normals=draws,
                 replicates=replicates, grp=grp, num_groups=num,
+                sketch=accs.get("sketch"), center=val,
             )
             if ci is None:
                 ci = (val, val)
@@ -478,4 +658,18 @@ def preagg_bytes(plan: Plan, num_slots: int) -> int:
     vectors = 2  # shared n/total
     for _c, kinds in plan.column_kinds:
         vectors += sum(estimators.accumulator(k).payload_vectors() for k in kinds)
+    return 4 * num_slots * vectors
+
+
+def refined_preagg_bytes(fused: FusedPlan, num_slots: int) -> int:
+    """Analytic dense model of a refined fused pass's uplink: each member
+    ships its own realized ``n`` vector plus its plan-declared per-column
+    payloads; the population vector is shared by a same-ROI group and
+    shipped per member when the ROIs differ."""
+    per_member_totals = fused.cross_roi
+    vectors = 0 if per_member_totals else 1  # shared total/counts
+    for p in fused.members:
+        vectors += 2 if per_member_totals else 1  # n (+ total when cross-ROI)
+        for _c, kinds in p.column_kinds:
+            vectors += sum(estimators.accumulator(k).payload_vectors() for k in kinds)
     return 4 * num_slots * vectors

@@ -84,10 +84,10 @@ class StratumTable:
     ) -> torch.Tensor:
         """Coordinates -> stratum index (encode + table lookup).
 
-        ``backend="pallas"`` routes the encode through the geohash kernel's
-        wrapper: the CUDA kernel on a CUDA tensor, its plain version on a
-        CPU tensor (the two are bit-identical)."""
-        if backend == "pallas":
+        ``backend="pallas"`` or ``"fused"`` routes the encode through the
+        geohash kernel's wrapper: the CUDA kernel on a CUDA tensor, its plain
+        version on a CPU tensor (the two are bit-identical)."""
+        if backend in ("pallas", "fused"):
             from ..kernels.geohash import geohash_encode
 
             codes = geohash_encode(lat, lon, self.precision)

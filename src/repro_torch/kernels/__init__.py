@@ -7,14 +7,22 @@ the main path:
   edge_reduce/  multi-column per-slot moment sums, deterministic (slot sort
                 + chunked warp reductions in double), behind
                 ``PipelineConfig(backend="pallas")``
+  edge_megakernel/  one pass that resolves each tuple's slot (sidx, or an
+                in-kernel geohash encode + code-table search), samples it by
+                threshold and emits pop/keep/extrema/sketch rows with
+                integer atomics and the moment sums deterministically,
+                behind ``PipelineConfig(backend="fused")``
 
 Each kernel package holds ``ops.py`` (the wrapper, which launches the CUDA
 kernel on a CUDA tensor, and the plain PyTorch version it takes on a CPU
 tensor) and ``ref.py`` (a numpy oracle).  The CUDA sources live in
-``../csrc``; :mod:`.build` compiles and loads them at first use and counts
-launches.  Launch shapes live in :mod:`.tiling`.
+``../csrc`` (device code shared between kernels in ``*.cuh`` headers);
+:mod:`.build` compiles and loads them at first use and counts launches.
+Launch shapes live in :mod:`.tiling`, the sort glue of the deterministic
+sums in :mod:`.segments`.
 """
 
-from . import build, edge_reduce, geohash, sample_mask, tiling
+from . import build, edge_megakernel, edge_reduce, geohash, sample_mask, segments, tiling
 
-__all__ = ["build", "edge_reduce", "geohash", "sample_mask", "tiling"]
+__all__ = ["build", "edge_megakernel", "edge_reduce", "geohash", "sample_mask", "segments",
+           "tiling"]

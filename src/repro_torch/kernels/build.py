@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries go
 into ``_build/<hash>/`` inside the package (listed in ``.gitignore``),
-keyed by a hash of every source and the compiler flags, so a changed
-source rebuilds and an unchanged one loads at once.  Nothing is compiled
+keyed by a hash of every source and header (``csrc/*.cuh``, shared device
+code) and the compiler flags, so a changed source or header rebuilds and an
+unchanged one loads at once.  Nothing is compiled
 when a module is imported: the first launch of a kernel builds it, and
 :func:`build_all` builds every kernel at once with one ``nvcc`` process per
 source, all started together.
@@ -24,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("geohash", "sample_mask", "edge_reduce")
+KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -41,17 +42,27 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 
-# C entry point and argument types of each library
+# C entry points and their argument types, per library; the first entry is
+# the one ``kernel(name)`` returns
 _SIGNATURES = {
-    "geohash": ("geohash_encode_launch", [_P, _P, _P, _L, _F, _F, _I, _I, _I, _I, _I, _P]),
-    "sample_mask": ("sample_mask_launch", [_P, _P, _P, _L, _I, _P, _P, _I, _I, _P]),
-    "edge_reduce": (
-        "edge_reduce_launch",
-        [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    ),
+    "geohash": {"geohash_encode_launch": [_P, _P, _P, _L, _F, _F, _I, _I, _I, _I, _I, _P]},
+    "sample_mask": {"sample_mask_launch": [_P, _P, _P, _L, _I, _P, _P, _I, _I, _P]},
+    "edge_reduce": {
+        "edge_reduce_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    },
+    "edge_megakernel": {
+        "edge_megakernel_resolve_launch": [
+            _P, _I, _I, _L, _I, _P, _L, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I,
+            _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+        ],
+        "edge_megakernel_reduce_launch": [
+            _P, _P, _P, _I, _I, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _L,
+            _I, _I, _P,
+        ],
+    },
 }
 
-_loaded: dict[str, ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -71,9 +82,9 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    """``_build/<hash>``: the hash covers every source and the flags."""
+    """``_build/<hash>``: the hash covers every source, header and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -114,18 +125,20 @@ def build_all(names=KERNELS) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, building it if needed."""
-    fn = _loaded.get(name)
+def kernel(name: str, entry: str | None = None):
+    """The ctypes entry point ``entry`` (default: the first) of kernel
+    ``name``'s library, building the library if needed."""
+    entries = _SIGNATURES[name]
+    entry = entry or next(iter(entries))
+    fn = _loaded.get((name, entry))
     if fn is None:
         path = _library_path(name)
         if not path.exists():
             build_all((name,))
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
+        fn = getattr(ctypes.CDLL(str(path)), entry)
+        fn.argtypes = entries[entry]
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[(name, entry)] = fn
     return fn
 
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..tiling import EDGE_REDUCE_CHUNK, THREADS
+from ..segments import sorted_runs
+from ..tiling import SEGMENT_CHUNK, THREADS
 
 
 def _moment_rows(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -53,17 +54,9 @@ def edge_reduce(stratum_idx: torch.Tensor, values: torch.Tensor, mask: torch.Ten
     if stratum_idx.shape != (n,) or mask.shape != (n,):
         raise ValueError("stratum_idx and mask must be (N,) for values (C, N)")
     s = int(num_slots)
-    chunk = EDGE_REDUCE_CHUNK
-    # glue: stable sort by slot, then each slot's run [offsets[k], offsets[k+1])
-    # cut into ceil(len / chunk) work items numbered chunk_off[k] onwards
-    sorted_sidx, perm = torch.sort(stratum_idx, stable=True)
-    slots = torch.arange(s + 1, dtype=torch.int32, device=dev)
-    offsets = torch.searchsorted(sorted_sidx, slots, out_int32=True)
-    lengths = offsets[1:] - offsets[:-1]
-    chunk_off = torch.zeros(s + 1, dtype=torch.int32, device=dev)
-    chunk_off[1:] = torch.cumsum((lengths + chunk - 1) // chunk, 0, dtype=torch.int32)
-    max_items = s + (n + chunk - 1) // chunk  # >= chunk_off[-1], no host sync
-    perm = perm.to(torch.int32)
+    chunk = SEGMENT_CHUNK
+    # glue: stable sort by slot, each slot's run cut into chunks
+    perm, offsets, chunk_off, max_items = sorted_runs(stratum_idx, s, chunk)
     partial = torch.empty((max_items, 1 + 2 * c), dtype=torch.float64, device=dev)
     count = torch.empty(s, dtype=torch.float32, device=dev)
     s1 = torch.empty((c, s), dtype=torch.float32, device=dev)

@@ -4,7 +4,8 @@ The TPU package tiles points and stratum slots into large VMEM blocks for a
 sequential grid; none of that carries over.  On Hopper every kernel here is
 a memory-bound stream, so a block is a multiple of the 32-thread warp and
 the grid is either one thread per element (capped, with a grid-stride loop)
-or, for edge_reduce, one warp per chunk of a slot's sorted run.
+or, for the deterministic moment sums, one warp per chunk of a segment's
+sorted run.
 """
 
 from __future__ import annotations
@@ -14,16 +15,21 @@ THREADS: dict[str, int] = {
     "geohash": 256,
     "sample_mask": 512,
     "edge_reduce": 256,
+    "edge_megakernel": 256,
 }
 
 # grid-stride kernels launch at most this many blocks per SM; sample_mask
 # copies the fraction table into shared memory once per block, so it runs
-# few, long-lived blocks
+# few, long-lived blocks.  The megakernel's resolve pass holds a member's
+# threshold row and the code table in shared memory (52 KB at Geohash-6),
+# so four of its blocks fit on an SM; the count is per member (grid.y).
 BLOCKS_PER_SM: dict[str, int] = {
     "geohash": 16,
     "sample_mask": 2,
+    "edge_megakernel": 4,
 }
 
-# edge_reduce: sorted tuples one warp reduces before handing a partial row
-# to the per-slot finish pass (bounds the work of the heaviest slot's warps)
-EDGE_REDUCE_CHUNK = 1024
+# sorted entries one warp reduces before handing a partial row to the
+# per-segment finish pass (bounds the work of the heaviest segment's warps);
+# edge_reduce and the megakernel's moment sums share it
+SEGMENT_CHUNK = 1024

@@ -1,7 +1,9 @@
 """The port's main path end to end (``repro_torch``, CPU) against the JAX
-package: ``EdgeCloudPipeline.execute`` with the segment and pallas
-backends, ``finalize`` on states carried across by ``repro_torch.convert``,
-the copied stream generators and windows, and the device rules.
+package: ``EdgeCloudPipeline.execute`` with the segment, pallas and fused
+backends (f32 and bf16 staging), the refined fused pass of a fusion group,
+``finalize`` on states carried across by ``repro_torch.convert``, the
+bootstrap draws of ``execute``, the copied stream generators and windows,
+and the device rules.
 
 Tolerances: counters and population counts are exact.  Estimates differ
 only by f32 summation order (the port's edge_reduce sums in double, JAX in
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from repro.core import pipeline as jpipe
 from repro.core import query as jquery
@@ -80,18 +83,29 @@ def _queries(method, group_by, roi, mod):
 CASES = [(None, None), ("stratum", "bbox"), ("neighborhood", "prefix")]
 
 
-@pytest.mark.parametrize("backend", ["segment", "pallas"])
+@pytest.mark.parametrize("backend", ["segment", "pallas", "fused"])
 @pytest.mark.parametrize("method", ["srs", "bernoulli"])
 @pytest.mark.parametrize("group_by,roi_kind", CASES)
 def test_execute_matches_jax(setup, backend, method, group_by, roi_kind):
+    _execute_matches_jax(setup, backend, method, group_by, roi_kind, "float32")
+
+
+@pytest.mark.parametrize("method", ["srs", "bernoulli"])
+def test_execute_fused_bf16_staging_matches_jax(setup, method):
+    _execute_matches_jax(setup, "fused", method, "neighborhood", "bbox", "bfloat16")
+
+
+def _execute_matches_jax(setup, backend, method, group_by, roi_kind, staging):
     jt, tt, window, prefix = setup
     roi = {None: None, "bbox": ((22.5, 22.7), (113.9, 114.3)), "prefix": prefix}[roi_kind]
     key = jax.random.key(11)
     n = len(window["lat"])
-    want = jpipe.EdgeCloudPipeline(jt, jpipe.PipelineConfig(backend=backend)).execute(
+    want = jpipe.EdgeCloudPipeline(
+        jt, jpipe.PipelineConfig(backend=backend, staging_dtype=staging)).execute(
         _queries(method, group_by, roi, jquery), key, window, FRACTION)
     before = dict(build.LAUNCHES)
-    got = tpipe.EdgeCloudPipeline(tt, tpipe.PipelineConfig(backend=backend), device="cpu").execute(
+    got = tpipe.EdgeCloudPipeline(
+        tt, tpipe.PipelineConfig(backend=backend, staging_dtype=staging), device="cpu").execute(
         _queries(method, group_by, roi, tquery), None, window, FRACTION,
         uniforms=np.array(jax.random.uniform(key, (n,))))
     assert build.LAUNCHES == before  # CPU tensors take the plain versions
@@ -146,22 +160,124 @@ def test_finalize_on_carried_states_matches_jax(setup, group_by):
         assert ok.any() and np.all(got[key_].ci_low.numpy()[ok] == value[ok])
 
 
-@pytest.mark.parametrize("kind", ["var", "p50"])
-def test_bootstrap_bounds_raise_until_ported(setup, kind):
+def _member_queries(mod, method):
+    """Three members of one fusion group, with differing aggregates (and,
+    for Bernoulli, differing ROIs)."""
+    rois = (None, ((22.5, 22.7), (113.9, 114.3)), ((22.6, 22.9), (113.7, 114.1)))
+    aggs = ((("mean", "value"), ("max", "value")),
+            (("p50", "value"), ("mean", "occupancy")),
+            (("sum", "occupancy"), ("min", "occupancy"), ("var", "value")))
+    return [mod.Query(aggs=tuple(mod.AggSpec(*a) for a in agg), method=method,
+                      roi=rois[i] if method == "bernoulli" else None, bootstrap_replicates=0)
+            for i, agg in enumerate(aggs)]
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+@pytest.mark.parametrize("method", ["srs", "bernoulli"])
+def test_refined_fused_pass_matches_jax(setup, backend, method):
+    """Three members at fractions 0.2, 0.5 and 0.8 thinned from one shared
+    draw (SRS), or masked to their own ROIs (Bernoulli): the per-member
+    counters are exact and the estimates within RTOL of JAX's refined pass."""
+    jt, tt, window, _ = setup
+    key = jax.random.key(21)
+    fractions = (0.2, 0.5, 0.8)
+    jfused = jquery.fuse([jquery.lower(q, jt) for q in _member_queries(jquery, method)])
+    tfused = tquery.fuse([tquery.lower(q, tt) for q in _member_queries(tquery, method)])
+    assert tquery.fusion_key(tfused.members[0]) == jquery.fusion_key(jfused.members[0])
+    assert tfused.shared.column_kinds == jfused.shared.column_kinds
+    assert tfused.cross_roi == jfused.cross_roi == (method == "bernoulli")
+    cols = {c: jnp.asarray(window[c], jnp.float32) for c in jfused.columns}
+    lat, lon = jnp.asarray(window["lat"], jnp.float32), jnp.asarray(window["lon"], jnp.float32)
+    valid = jnp.asarray(window["valid"])
+    want, want_comm = jpipe._fused_edge_program(
+        jfused, jt, jpipe.PipelineConfig(backend=backend), key, lat, lon, cols, valid,
+        jnp.asarray(fractions, jnp.float32))
+    pipe = tpipe.EdgeCloudPipeline(tt, tpipe.PipelineConfig(backend=backend), device="cpu")
+    got, comm = pipe.refined_pass(tfused, None, window, fractions,
+                                  uniforms=np.array(jax.random.uniform(key, lat.shape)))
+    assert comm == int(want_comm) == tquery.refined_preagg_bytes(tfused, tt.num_slots)
+    for m, (g, w) in enumerate(zip(got, want)):
+        for i in (1, 2, 3):  # n_sampled, n_valid, n_overflow
+            assert int(g[i]) == int(w[i]), (m, i)
+        for col in g[0]:
+            _close(g[0][col]["moments"].n.numpy(), w[0][col]["moments"].n, exact=True)
+        plan_t, plan_j = tfused.members[m], jfused.members[m]
+        _same_estimates(tquery.finalize(plan_t, tt, g[0]), jquery.finalize(plan_j, jt, w[0]))
+    # SRS members nest: a smaller fraction keeps a subset of a larger one's sample
+    if method == "srs":
+        n_by_member = [int(g[1]) for g in got]
+        assert n_by_member == sorted(n_by_member)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_execute_bootstrap_matches_jax(setup, backend):
+    """``var``/``p<q>`` answer with bootstrap intervals on every backend;
+    with JAX's uniforms and normals injected they match JAX's execute."""
+    jt, tt, window, _ = setup
+    aggs = (("var", "value"), ("p50", "value"), ("p99", "occupancy"), ("var", "occupancy"))
+    key = jax.random.key(13)
+    n = len(window["lat"])
+    jq = jquery.Query(aggs=tuple(jquery.AggSpec(*a) for a in aggs), group_by="neighborhood")
+    tq = tquery.Query(aggs=tuple(tquery.AggSpec(*a) for a in aggs), group_by="neighborhood")
+    want = jpipe.EdgeCloudPipeline(jt, jpipe.PipelineConfig(backend=backend)).execute(
+        jq, key, window, FRACTION)
+    pipe = tpipe.EdgeCloudPipeline(tt, tpipe.PipelineConfig(backend=backend), device="cpu")
+    plan = pipe.plan(tq)
+    bkey = jax.random.fold_in(key, 0x626E64)
+    shape = (tq.bootstrap_replicates, plan.num_groups, 513)
+    normals = {}
+    for i, (kind, col) in enumerate(aggs):
+        akey = jax.random.fold_in(bkey, i)
+        if kind == "var":
+            k_mom, k_sk = jax.random.split(akey)
+            k1, k2 = jax.random.split(k_mom)
+            # both columns ship a sketch (a quantile reads each)
+            normals[i] = {"mean": jax.random.normal(k1, (shape[0], tt.num_slots)),
+                          "s2": jax.random.normal(k2, (shape[0], tt.num_slots)),
+                          "sketch": jax.random.normal(k_sk, shape)}
+        else:
+            normals[i] = {"sketch": jax.random.normal(akey, shape)}
+    normals = {i: {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+               for i, d in normals.items()}
+    got = pipe.execute(tq, None, window, FRACTION,
+                       uniforms=np.array(jax.random.uniform(key, (n,))), normals=normals)
+    for (kind, _), spec in zip(aggs, tq.aggs):
+        g, w = got.estimates[spec.key], want.estimates[spec.key]
+        _close(g.value.numpy(), w.value)
+        for field in ("ci_low", "ci_high"):
+            a, b = getattr(g, field).numpy(), np.asarray(getattr(w, field))
+            if kind == "var":
+                _close(a, b)
+            else:  # one ulp in a weight can move a replicate by a sketch bin
+                fin = np.isfinite(b)
+                assert np.array_equal(np.isfinite(a), fin)
+                assert np.all(np.abs(a[fin] - b[fin]) <= 0.0833 * np.abs(b[fin]) + 1e-6)
+
+
+def test_execute_draws_normals_after_uniforms_from_one_generator(setup):
     _, tt, window, _ = setup
-    pipe = tpipe.EdgeCloudPipeline(tt, device="cpu")
-    q = tquery.Query(aggs=(tquery.AggSpec(kind, "value"),), bootstrap_replicates=10)
-    with pytest.raises(NotImplementedError):
-        pipe.execute(q, torch.Generator().manual_seed(0), window, FRACTION)
+    pipe = tpipe.EdgeCloudPipeline(tt, tpipe.PipelineConfig(backend="fused"), device="cpu")
+    q = tquery.Query(aggs=(tquery.AggSpec("var", "value"), tquery.AggSpec("p50", "value")))
+    a = pipe.execute(q, torch.Generator().manual_seed(4), window, FRACTION)
+    gen = torch.Generator().manual_seed(4)
+    u = torch.rand(len(window["lat"]), generator=gen)
+    normals = tquery.bootstrap_normals(pipe.plan(q), tt, a.stats, gen)
+    assert sorted(normals) == [0, 1] and sorted(normals[0]) == ["mean", "s2", "sketch"]
+    b = pipe.execute(q, None, window, FRACTION, uniforms=u, normals=normals)
+    for key in a.estimates:
+        for field in ("value", "ci_low", "ci_high"):
+            assert torch.equal(getattr(a.estimates[key], field), getattr(b.estimates[key], field))
+    assert float(a.estimates["var_value"].ci_high) > float(a.estimates["var_value"].ci_low)
 
 
-@pytest.mark.parametrize("kwargs", [dict(backend="fused"), dict(mode="raw"),
-                                    dict(uplink_codec="sparse")])
+@pytest.mark.parametrize("kwargs", [dict(mode="raw"), dict(uplink_codec="sparse")])
 def test_later_slices_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError):
         tpipe.PipelineConfig(**kwargs)
     with pytest.raises(ValueError):
         tpipe.PipelineConfig(backend="bogus")
+    with pytest.raises(ValueError):
+        tpipe.PipelineConfig(backend="pallas", staging_dtype="bfloat16")
 
 
 def test_no_gpu_and_no_device_raises(monkeypatch):
