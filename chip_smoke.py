@@ -13,7 +13,10 @@ last line is printed:
    Shenzhen window at Geohash-6), twice, bitwise reproducible.  The edge
    megakernel runs in sidx mode with three members (SRS ranks against three
    n_k rows), in latlon mode with two members (two ROI masks, two
-   fractions), and in sidx mode once more with bf16 staging.
+   fractions), and in sidx mode once more with bf16 staging.  Flash
+   attention runs at the reference kernel test's shapes (MHA, GQA, MQA,
+   head_dim 112, ragged S 300) in f32 and bf16 and at the serving prefill's
+   shape (B 4, S 1024, 16 heads, head_dim 64, bf16).
 3. End to end: ``EdgeCloudPipeline.execute`` with ``backend="pallas"`` and
    ``backend="fused"`` for SRS and Bernoulli sampling on the Shenzhen
    window and on one Chicago air-quality window (Geohash-5), plus one
@@ -27,14 +30,27 @@ last line is printed:
    repeated on both devices with the same injected normals.  Then the
    refined fused pass of three SRS members (fractions 0.2, 0.5, 0.8), with
    its own counters, on the card against the CPU.
-4. Times: CUDA events, median of 25 launches after warm-up with the L2
+   Last, every execute again on the segment backend, twice: bitwise equal,
+   and the pallas run's sample.
+4. Serving: qwen1.5-0.5b at full width and depth (24 layers, d 1024, 16
+   heads, vocabulary 151936) with weights from a seeded CUDA generator
+   serves 8 requests of 1024 prompt tokens in batches of 4, 32 greedy
+   tokens each, through ``repro_torch.launch.serve.serve_requests``.
+   Launch counters are zeroed just before and read just after: the flash
+   kernel must launch once per layer per prefill.  Logits finite, tokens in
+   the vocabulary, a second run bitwise equal; prefill and decode times and
+   tokens per second.  Then the same config cut to 2 layers in f32, on the
+   card (flash kernel) and on the CPU (plain attention) with the same
+   weights: a 512-token prefill and 4 greedy steps give the same tokens and
+   logits within 1e-4 of the row's largest.
+5. Times: CUDA events, median of 25 launches after warm-up with the L2
    cache flushed before each, for every kernel, its plain version and the
    library call where one computes the same function (device time), and
    each kernel's host-clock time per call in a loop; host clock for each
    ``execute`` on both backends in turns, with the synchronizing CUDA
    operations one execute makes and the allocator's cudaMalloc calls, then
-   one profiled ``execute`` per method and backend (device busy time and
-   the heaviest device ops).
+   one profiled ``execute`` per method and backend and one profiled
+   prefill and decode step (device busy time and the heaviest device ops).
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -79,6 +95,23 @@ BIN_RTOL = 0.0833
 BACKENDS = ("pallas", "fused")
 REFINED_FRACTIONS = (0.2, 0.5, 0.8)
 REPLICATES = 200
+EDGE_KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel")
+# the bf16 tensor-core peak (NVIDIA data sheet, dense) for the flash bound
+PEAK_BF16_OPS_PER_S = 989e12
+# flash attention against its plain version: the reference kernel test's
+# tolerances (tests/test_kernels.py); the kernel keeps the softmax weights
+# in f32 where the plain version casts them to bf16
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (B, S, H, K, dh): the reference kernel test's shapes, then the serving
+# prefill's (4 requests of 1024 tokens, qwen1.5-0.5b's 16 heads of 64)
+FLASH_SHAPES = [(1, 256, 4, 4, 64), (2, 512, 8, 2, 64), (1, 512, 8, 1, 128),
+                (1, 256, 4, 4, 112), (1, 300, 4, 2, 64)]
+FLASH_SERVE_SHAPE = (4, 1024, 16, 16, 64)
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_REQUESTS, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 8, 4, 1024, 32
+# the card against the CPU: the serving config cut to 2 layers, in f32
+CROSS_LAYERS, CROSS_BATCH, CROSS_LEN, CROSS_STEPS = 2, 2, 512, 4
+CROSS_RTOL = 1e-4
 
 KERNEL_INFO = {
     "geohash": ("src/repro_torch/csrc/geohash.cu",
@@ -89,6 +122,8 @@ KERNEL_INFO = {
                     "src/repro/kernels/edge_reduce/edge_reduce.py:77"),
     "edge_megakernel": ("src/repro_torch/csrc/edge_megakernel.cu",
                         "src/repro/kernels/edge_megakernel/edge_megakernel.py:210"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:66"),
 }
 
 
@@ -181,9 +216,9 @@ def sync_count(fn) -> int:
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -479,7 +514,40 @@ def phase_kernel_checks(x) -> dict:
             else:
                 check(torch.equal(got, ref), f"edge_megakernel {label}: {name} differs from the plain version")
         check(float(k1.keep.sum()) > 0, f"edge_megakernel {label}: nothing kept")
+    err["flash_attention"], err["flash_by_shape"] = flash_checks(x["lat"].device)
     return err
+
+
+def flash_inputs(shape, dtype, dev):
+    """q (B, S, H, dh), k and v (B, S, K, dh) from a seeded CUDA generator."""
+    b, s, h, k, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + dh)
+    return tuple(torch.randn((b, s, n, dh), generator=gen, device=dev).to(dtype) for n in (h, k, k))
+
+
+def flash_checks(dev) -> tuple[float, dict]:
+    """The flash kernel against its plain version at every listed shape, and
+    two runs bitwise equal -> (largest |kernel - plain|, that per shape)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    cases = [(shape, dt) for shape in FLASH_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    cases.append((FLASH_SERVE_SHAPE, torch.bfloat16))
+    by_shape = {}
+    for shape, dtype in cases:
+        label = f"flash_attention {'x'.join(map(str, shape))} {str(dtype).removeprefix('torch.')}"
+        q, k, v = flash_inputs(shape, dtype, dev)
+        a, b = flash_attention(q, k, v), flash_attention(q, k, v)
+        plain = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        check(a.dtype == dtype and a.shape == q.shape,
+              f"{label}: output {a.dtype} {tuple(a.shape)}")
+        check(torch.equal(a, b), f"{label}: two runs differ")
+        tol = FLASH_TOL[dtype]
+        diff = (a.float() - plain.float()).abs()
+        check(bool(torch.all(diff <= tol + tol * plain.float().abs())),
+              f"{label}: max |kernel - plain| {float(diff.max())} beyond atol=rtol={tol}")
+        by_shape[label.removeprefix("flash_attention ")] = float(diff.max())
+    return max(by_shape.values()), by_shape
 
 
 def expected_kernels(backend: str, method: str) -> set:
@@ -548,8 +616,30 @@ def phase_end_to_end(windows, dev) -> tuple[dict, list]:
                      f"n_overflow={int(res.n_overflow)} launches={moved} MAPE={err:.6f} "
                      f"(GPU == CPU counters, two GPU runs bitwise equal{same})")
     lines.append(bootstrap_checks(boot, boot_moved, pipes[("shenzhen", "fused")], windows, dev))
-    check(all(launches[k] > 0 for k in build.KERNELS), f"a kernel never launched: {launches}")
+    check(all(launches[k] > 0 for k in EDGE_KERNELS), f"a kernel never launched: {launches}")
+    lines.append(segment_checks(windows, by_run, dev))
     return launches, lines
+
+
+def segment_checks(windows, by_run, dev) -> str:
+    """Every execute once more on the segment backend, twice: the two give
+    the same bits, and the pallas run's sample (same uniforms)."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+
+    count = 0
+    for name, (table, cols, second) in windows.items():
+        pipe = EdgeCloudPipeline(table, PipelineConfig(backend="segment"), device=dev)
+        for method in ("srs", "bernoulli"):
+            for qname, q in queries(second, method).items():
+                label = f"{name}/segment/{method}/{qname}"
+                one, two = (pipe.execute(q, torch.Generator(device=dev).manual_seed(SEED), cols,
+                                         FRACTION) for _ in range(2))
+                check(same_bits(one.estimates, two.estimates), f"{label}: two executes differ")
+                compare_results(one, by_run[(name, "pallas", method, qname)], f"{label} vs pallas",
+                                exact_n=True)
+                count += 1
+    return (f"segment backend: {count} executes, each twice on the card: bitwise equal, and the "
+            "pallas run's sample (counters, per-stratum n) with estimates within tolerance")
 
 
 def bootstrap_checks(res, moved, pipe, windows, dev) -> str:
@@ -633,6 +723,123 @@ def phase_refined(windows, dev) -> tuple[dict, list]:
     return launches, lines
 
 
+def serve_prompts(vocab_size: int) -> list:
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab_size, PROMPT_LEN).astype(np.int32) for _ in range(SERVE_REQUESTS)]
+
+
+def phase_serving(dev, card: str) -> tuple[dict, list, tuple]:
+    """The LM serving path: qwen1.5-0.5b at full width and depth serves the
+    requests through the serve loop, counters zeroed just before and read
+    just after; then the checks, a second run and the times.  Returns the
+    launches, the lines, and the model with one batch's prefill and decode
+    inputs for the profiles of phase 5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import init_params
+
+    cfg = get_config(SERVE_ARCH)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = serve_prompts(cfg.vocab_size)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    served = serve_requests(model, cfg, prompts, SERVE_BATCH, MAX_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    label = f"serve {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size})"
+    check(served.prefills == -(-SERVE_REQUESTS // SERVE_BATCH),
+          f"{label}: {served.prefills} prefills")
+    check(launches["flash_attention"] == cfg.num_layers * served.prefills,
+          f"{label}: flash_attention launched {launches['flash_attention']} times, expected "
+          f"{cfg.num_layers} per prefill x {served.prefills}")
+    check(served.tokens.shape == (SERVE_REQUESTS, MAX_NEW),
+          f"{label}: tokens {tuple(served.tokens.shape)}")
+    check(bool(served.finite), f"{label}: a logit is not finite")
+    check(int(served.tokens.min()) >= 0 and int(served.tokens.max()) < cfg.vocab_size,
+          f"{label}: a token outside the vocabulary")
+    t0 = time.perf_counter()
+    again = serve_requests(model, cfg, prompts, SERVE_BATCH, MAX_NEW)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(torch.equal(served.tokens, again.tokens), f"{label}: two runs generate different tokens")
+    check(torch.equal(served.last_logits.view(torch.uint8), again.last_logits.view(torch.uint8)),
+          f"{label}: two runs end with different logits")
+
+    batch = torch.as_tensor(np.stack(prompts[:SERVE_BATCH])).to(dev)
+    positions = torch.arange(PROMPT_LEN, device=dev).expand(SERVE_BATCH, PROMPT_LEN)
+    max_len = PROMPT_LEN + MAX_NEW
+    prefill_ms = host_ms(lambda: model.prefill(batch, positions, max_len), reps=5, warm=1)
+    logits, state = model.prefill(batch, positions, max_len)
+    toks = torch.argmax(logits, -1).to(torch.int32)
+    decode_ms = host_ms(lambda: model.decode_step(state, toks), reps=20, warm=2)
+    n_tokens = served.tokens.numel()
+    lines = [
+        f"{label}: {SERVE_REQUESTS} requests x {PROMPT_LEN} prompt tokens in batches of "
+        f"{SERVE_BATCH}, {MAX_NEW} greedy tokens each; launches={launches}; logits finite, tokens "
+        f"in [0, {cfg.vocab_size}), two runs bitwise equal (tokens and last logits)",
+        f"[{card}] {label}: prefill (B {SERVE_BATCH}, S {PROMPT_LEN}) {prefill_ms:.3f} ms, decode "
+        f"{decode_ms:.3f} ms per step (B {SERVE_BATCH}, cache {max_len}); whole run "
+        f"{serve_s * 1e3:.1f} ms for {n_tokens} generated tokens = {n_tokens / serve_s:.1f} "
+        f"tokens/s (first run, with warm-up, {first_s * 1e3:.1f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+    ]
+    lines.append(cross_check(cfg, dev))
+    return launches, lines, (model, batch, positions, max_len, state, toks)
+
+
+def cross_check(cfg, dev) -> str:
+    """The serving config cut to 2 layers in f32, the same weights on the
+    card (flash kernel) and on the CPU (plain attention): prefill and a
+    greedy decode give the same tokens and close logits."""
+    from repro_torch.kernels import build
+    from repro_torch.models import DenseTransformer, init_tree, param_specs
+    from repro_torch.models.transformer import map_leaves
+
+    cfg = cfg.replace(num_layers=CROSS_LAYERS, dtype=torch.float32)
+    tree = init_tree(param_specs(cfg), torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    on_card = DenseTransformer(cfg, tree)
+    on_cpu = DenseTransformer(cfg, map_leaves(lambda t: t.cpu(), tree))
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (CROSS_BATCH, CROSS_LEN)),
+                           dtype=torch.int32)
+    pos = torch.arange(CROSS_LEN).expand(CROSS_BATCH, CROSS_LEN)
+    max_len = CROSS_LEN + CROSS_STEPS
+    label = f"{cfg.name} cut to {CROSS_LAYERS} layers, f32, GPU vs CPU"
+    build.reset_launches()
+    g_logits, g_state = on_card.prefill(toks.to(dev), pos.to(dev), max_len)
+    torch.cuda.synchronize()
+    launched = build.LAUNCHES["flash_attention"]
+    check(launched == CROSS_LAYERS,
+          f"{label}: flash_attention launched {launched} times on the card")
+    c_logits, c_state = on_cpu.prefill(toks, pos, max_len)
+    check(build.LAUNCHES["flash_attention"] == CROSS_LAYERS, f"{label}: the CPU launched a kernel")
+    worst = 0.0
+    for step in range(CROSS_STEPS + 1):
+        g, c = g_logits.cpu(), c_logits
+        scale = c[:, : cfg.vocab_size].abs().amax(-1, keepdim=True)
+        err = ((g - c).abs() / scale).nan_to_num(0.0)  # the padded rows are -1e30 on both
+        check(bool(torch.all((g == c) | (err <= CROSS_RTOL))),
+              f"{label}: step {step} logits differ by {float(err.max())} of the row's largest")
+        worst = max(worst, float(err[:, : cfg.vocab_size].max()))
+        g_tok, c_tok = (torch.argmax(t, -1).to(torch.int32) for t in (g_logits, c_logits))
+        check(torch.equal(g_tok.cpu(), c_tok),
+              f"{label}: step {step} tokens {g_tok.tolist()} vs {c_tok.tolist()}")
+        if step < CROSS_STEPS:
+            g_logits, g_state = on_card.decode_step(g_state, g_tok)
+            c_logits, c_state = on_cpu.decode_step(c_state, c_tok)
+    for name in ("k", "v"):
+        kv_err = float((g_state.data[name].cpu() - c_state.data[name]).abs().max())
+        check(kv_err <= CROSS_RTOL * float(c_state.data[name].abs().max()),
+              f"{label}: {name} cache differs by {kv_err}")
+    return (f"{label}: prefill of {CROSS_BATCH} x {CROSS_LEN} tokens and {CROSS_STEPS} greedy "
+            f"steps, tokens equal, logits within {worst:.2e} of the row's largest (limit "
+            f"{CROSS_RTOL}), "
+            f"flash_attention launched {CROSS_LAYERS} times on the card and not on the CPU")
+
+
 def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
     from repro_torch.kernels.edge_megakernel import edge_megakernel, edge_megakernel_plain
     from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
@@ -693,10 +900,42 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         lines.append(f"[{card}] {name}: device {t['ms']:.4f} ms, per call {t['call_ms']:.4f} ms, "
                      f"bound {b_ms:.4f} ms ({b_by}), plain {t['plain_ms']:.4f} ms, library {lib}")
+    # flash attention at the serving prefill's shape (the JSON entry), and in
+    # f32 at the GPU-vs-CPU check's; the library call is PyTorch's fused
+    # attention on the same tensors, timed only
+    flash_shapes = {"flash_attention": (FLASH_SERVE_SHAPE, torch.bfloat16),
+                    "flash_attention/f32": ((CROSS_BATCH, CROSS_LEN, 16, 16, 64), torch.float32)}
+    for name, (shape, dtype) in flash_shapes.items():
+        kernel, plain, library, (b_ms, b_by) = flash_calls(shape, dtype, dev)
+        t = {"ms": timer.ms(kernel), "call_ms": call_ms(kernel), "plain_ms": timer.ms(plain),
+             "library_ms": timer.ms(library), "bound_ms": b_ms, "bound_by": b_by}
+        times[name] = t
+        lines.append(f"[{card}] {name} {'x'.join(map(str, shape))}: device "
+                     f"{t['ms']:.4f} ms, per call {t['call_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                     f"({b_by}), plain {t['plain_ms']:.4f} ms, library (SDPA) "
+                     f"{t['library_ms']:.4f} ms")
     times["edge_megakernel"] = times["edge_megakernel/latlon1"]
     lines.append(f"[{card}] edge_reduce glue: stable sort of sidx alone "
                  f"{timer.ms(lambda: torch.sort(x['sidx'], stable=True)):.4f} ms")
     return times, lines + execute_times(windows, dev, card)
+
+
+def flash_calls(shape, dtype, dev):
+    """(kernel, plain, library, bound) at one shape: q, k, v read once and o
+    written once over the memory rate, or the causal products' operations
+    (4 B H dh S (S+1) / 2) over the peak rate of the input type."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v = flash_inputs(shape, dtype, dev)
+    b, s, h, _, dh = shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops = 4 * b * h * dh * s * (s + 1) / 2
+    peak = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return (lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                     enable_gqa=True),
+            bound_ms(nbytes, ops, peak))
 
 
 def execute_times(windows, dev, card: str) -> list:
@@ -735,7 +974,7 @@ def execute_times(windows, dev, card: str) -> list:
                                      f"numpy), {syncs[b]} syncs per execute, {mallocs[b]} cudaMalloc "
                                      "in the timed runs" for b in BACKENDS))
             if name == "shenzhen" and qlabel.endswith("/flat"):
-                profiles += [(run[b], f"{name}/{b}/{qlabel}") for b in BACKENDS]
+                profiles += [(run[b], f"execute {name}/{b}/{qlabel}") for b in BACKENDS]
     return lines + [profile_line(fn, label, card) for fn, label in profiles]
 
 
@@ -756,7 +995,7 @@ def profile_line(fn, label: str, card: str) -> str:
     busy_us = sum(e.self_device_time_total for e in ops)
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
     heavy = ", ".join(f"{e.key[:60]} {e.self_device_time_total:.1f}us x{e.count}" for e in top)
-    return (f"[{card}] profile execute {label}: wall {wall_us:.0f} us under the profiler, "
+    return (f"[{card}] profile {label}: wall {wall_us:.0f} us under the profiler, "
             f"device busy {busy_us:.0f} us ({busy_us / wall_us:.1%}), "
             f"{sum(e.count for e in ops)} device ops; heaviest: {heavy}")
 
@@ -777,9 +1016,12 @@ def main() -> int:
     table, cols, _ = windows["shenzhen"]
     x = kernel_inputs(table, cols, dev)
     err = phase_kernel_checks(x)
+    flash_by_shape = err.pop("flash_by_shape")
     print(f"[phase 2] kernels {list(err)}: max |kernel - plain| {err}; "
           f"N={x['sidx'].shape[0]} S+1={x['num_slots']} C={x['values'].shape[0]}; "
           "bitwise reproducible across two runs", flush=True)
+    print("[phase 2] flash_attention max |kernel - plain| by shape (B x S x H x K x dh): "
+          + json.dumps(flash_by_shape), flush=True)
 
     launches, lines = phase_end_to_end(windows, dev)
     print("[phase 3] main path (every execute) launches " + json.dumps(launches))
@@ -790,9 +1032,21 @@ def main() -> int:
     for line in lines:
         print("[phase 3] " + line, flush=True)
 
-    times, lines = phase_times(x, windows, dev, card)
+    serve_launches, lines, served_with = phase_serving(dev, card)
+    model, batch, positions, max_len, state, toks = served_with
+    print("[phase 4] serving launches " + json.dumps(serve_launches))
     for line in lines:
         print("[phase 4] " + line, flush=True)
+    launches["flash_attention"] = serve_launches["flash_attention"]
+
+    times, lines = phase_times(x, windows, dev, card)
+    # the profiles come last (profiling slows every later launch)
+    lines.append(profile_line(lambda: model.prefill(batch, positions, max_len),
+                              f"prefill {SERVE_ARCH} B {SERVE_BATCH} S {PROMPT_LEN}", card))
+    lines.append(profile_line(lambda: model.decode_step(state, toks),
+                              f"decode step {SERVE_ARCH} B {SERVE_BATCH}", card))
+    for line in lines:
+        print("[phase 5] " + line, flush=True)
 
     kernels = []
     for name in build.KERNELS:

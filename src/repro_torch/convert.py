@@ -1,9 +1,11 @@
-"""Carry state across from numpy: stratum tables and accumulator states.
+"""Carry state across from numpy: stratum tables, accumulator states and
+model parameters.
 
 Another implementation of the engine (or a file) can hand over a stratum
-table or per-column accumulator states as plain numpy arrays; these
-functions rebuild this package's objects from them, so the same states can
-be finalized here and there.
+table, per-column accumulator states or a model's parameter tree as plain
+numpy arrays; these functions rebuild this package's objects from them, so
+the same states can be finalized, and the same weights served, here and
+there.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import torch
 
 from .core import estimators
 from .core.stratify import StratumTable, resolve_device
+from .models import DenseTransformer, ModelConfig
+from .models.base import map_leaves
 
 _STATE_TYPES = {
     "moments": estimators.StratumStats,
@@ -53,3 +57,15 @@ def accs_from_numpy(stats: dict, device=None) -> dict:
                 }
             )
     return out
+
+
+def model_from_numpy(params: dict, cfg: ModelConfig, device=None) -> DenseTransformer:
+    """A model from a parameter tree in the JAX package's layout, as nested
+    dicts of numpy arrays: ``embedding/tok`` (and ``embedding/unembed`` when
+    the embeddings are untied), ``final_norm``, and the ``layers/*`` leaves
+    stacked over the layers, ``(L, ...)``, which the model takes apart into
+    its per-layer modules.  Arrays are copied as they are (the reference
+    keeps its parameters in f32)."""
+    dev = resolve_device(device)
+    tree = {k: params[k] for k in ("embedding", "final_norm", "layers")}
+    return DenseTransformer(cfg, map_leaves(lambda a: torch.as_tensor(np.array(a), device=dev), tree))

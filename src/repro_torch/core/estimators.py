@@ -61,7 +61,14 @@ class Estimate(NamedTuple):
 
 
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    """Sum rows of ``x`` into ``num`` segments along dim 0."""
+    """Sum rows of ``x`` into ``num`` segments along dim 0.
+
+    Float rows are added one after another in ascending row order within
+    each segment (:func:`group_sum` over a stable sort), so the result is
+    the same bits on every run and every device; integer rows, which add
+    exactly in any order, go through one ``index_add_``."""
+    if x.is_floating_point():
+        return group_sum(x, groups_of(idx, num), num)
     out = torch.zeros((num,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     return out.index_add_(0, idx, x)
 
@@ -608,8 +615,9 @@ class QuantileSketchAccumulator(Accumulator):
 
     def accumulate(self, values, stratum_idx, mask, num_slots, counts=None):
         flat = stratum_idx.to(torch.int64) * SKETCH_NUM_BINS + sketch_bin_index(values)
-        # 0/1 counts: f32 sums stay exact integers below 2**24 in any order
-        bins = segment_sum(mask.to(torch.float32), flat, num_slots * SKETCH_NUM_BINS)
+        # 0/1 counts add exactly as integers, in any order
+        bins = segment_sum(mask.to(torch.int32), flat, num_slots * SKETCH_NUM_BINS)
+        bins = bins.to(torch.float32)
         return QuantileSketch(bins=bins.reshape(num_slots, SKETCH_NUM_BINS))
 
     def from_kernel_rows(self, bins) -> QuantileSketch:

@@ -8,8 +8,9 @@ Edge tier  = stratify + EdgeSOS-sample the local window, then reduce every
              per-stratum accumulator states.  The moment reductions run on
              ``PipelineConfig.backend``:
 
-               * ``"segment"`` — per-column ``index_add_`` reductions (the
-                 portable path and the parity oracle);
+               * ``"segment"`` — per-column segment sums in a fixed order
+                 (``estimators.segment_sum``; the portable path and the
+                 parity oracle);
                * ``"pallas"``  — one multi-column pass through the
                  edge_reduce kernel, with geohash encode and Bernoulli
                  selection through their kernels too;

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the main path:
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per ported TPU
+kernel:
 
   geohash/      fused quantize + Morton interleave (elementwise)
   sample_mask/  per-stratum fraction gather from shared memory + Bernoulli
@@ -12,6 +12,8 @@ the main path:
                 threshold and emits pop/keep/extrema/sketch rows with
                 integer atomics and the moment sums deterministically,
                 behind ``PipelineConfig(backend="fused")``
+  flash_attention/  causal attention forward with an online softmax, GQA
+                read in place; every layer of the LM prefill
 
 Each kernel package holds ``ops.py`` (the wrapper, which launches the CUDA
 kernel on a CUDA tensor, and the plain PyTorch version it takes on a CPU
@@ -22,7 +24,8 @@ Launch shapes live in :mod:`.tiling`, the sort glue of the deterministic
 sums in :mod:`.segments`.
 """
 
-from . import build, edge_megakernel, edge_reduce, geohash, sample_mask, segments, tiling
+from . import (build, edge_megakernel, edge_reduce, flash_attention, geohash, sample_mask,
+               segments, tiling)
 
-__all__ = ["build", "edge_megakernel", "edge_reduce", "geohash", "sample_mask", "segments",
-           "tiling"]
+__all__ = ["build", "edge_megakernel", "edge_reduce", "flash_attention", "geohash",
+           "sample_mask", "segments", "tiling"]

@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel")
+KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel", "flash_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -58,6 +58,12 @@ _SIGNATURES = {
         "edge_megakernel_reduce_launch": [
             _P, _P, _P, _I, _I, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _L,
             _I, _I, _P,
+        ],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _I,
+            _I, _P,
         ],
     },
 }

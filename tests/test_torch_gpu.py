@@ -9,7 +9,10 @@ edge megakernel counts (and the megakernel's extrema and sketch bins)
 exactly and sums within the reference's kernel-test tolerance
 (``tests/test_kernels.py``: rtol=2e-6, atol=1e-3), and every kernel gives the
 same bits on a second run.  The fused backend keeps the pallas backend's
-sample on the card.
+sample on the card, and the segment backend gives the same bits twice.  The
+flash-attention kernel is held against its plain version (the model's
+chunked attention) with the reference kernel test's tolerances (2e-5 f32,
+2e-2 bf16), and the dense decoder's prefill launches it once per layer.
 """
 
 import numpy as np
@@ -17,13 +20,16 @@ import pytest
 import torch
 
 from repro_torch.core import AggSpec, EdgeCloudPipeline, PipelineConfig, Query, make_table
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.stratify import SHENZHEN_BBOX
 from repro_torch.data import materialize, shenzhen_taxi_stream
 from repro_torch.kernels import build
 from repro_torch.kernels.edge_megakernel import edge_megakernel, edge_megakernel_plain
 from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.geohash import geohash_encode, geohash_encode_plain
 from repro_torch.kernels.sample_mask import sample_mask, sample_mask_plain
+from repro_torch.models import init_params
 
 pytestmark = pytest.mark.gpu
 
@@ -113,7 +119,7 @@ def test_empty_window_launches_only_what_writes(cuda):
                                 torch.empty(0, dtype=torch.bool, device=cuda), 4)
     assert not count.any() and not s1.any() and not s2.any() and s1.shape == (2, 4)
     assert build.LAUNCHES == {"geohash": 0, "sample_mask": 0, "edge_reduce": 1,
-                              "edge_megakernel": 0}
+                              "edge_megakernel": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("mode", ["sidx", "latlon"])
@@ -180,3 +186,73 @@ def test_fused_execute_keeps_the_pallas_sample(cuda, method):
                                getattr(twice.estimates[key], field).view(torch.int32))
         torch.testing.assert_close(est.value, pallas.estimates[key].value,
                                    rtol=1e-4, atol=0.0, equal_nan=True)
+
+
+def test_segment_execute_is_bitwise_reproducible(cuda):
+    window = materialize(shenzhen_taxi_stream(num_chunks=5, seed=3))
+    q = Query(aggs=(AggSpec("sum", "value"), AggSpec("mean", "value"), AggSpec("p50", "value"),
+                    AggSpec("var", "occupancy")),
+              group_by="neighborhood", bootstrap_replicates=50)
+    table = make_table(*SHENZHEN_BBOX, precision=6, neighborhood_precision=4)
+    runs = [EdgeCloudPipeline(table, PipelineConfig(backend="segment")).execute(
+        q, torch.Generator(device=cuda).manual_seed(4), window, 0.8) for _ in range(2)]
+    for key, est in runs[0].estimates.items():
+        for field in est._fields:
+            assert torch.equal(getattr(est, field).view(torch.int32),
+                               getattr(runs[1].estimates[key], field).view(torch.int32))
+
+
+FLASH_SHAPES = [(1, 256, 4, 4, 64), (2, 512, 8, 2, 64), (1, 512, 8, 1, 128), (1, 256, 4, 4, 112),
+                (1, 300, 4, 2, 64)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    B, S, H, K, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + dh)
+    q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=cuda).to(dtype)
+               for n in (H, K, K))
+    build.reset_launches()
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    plain = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_reads_strided_heads(cuda):
+    """q, k, v as head slices of one fused projection: read through strides."""
+    B, S, H, K, dh = 2, 200, 8, 2, 64
+    qkv = torch.randn((B, S, H + 2 * K, dh), generator=torch.Generator(device=cuda).manual_seed(1),
+                      device=cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H : H + K], qkv[:, :, H + K :]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v)
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v), atol=2e-5, rtol=2e-5)
+
+
+def test_dense_prefill_launches_flash_per_layer(cuda):
+    cfg = get_smoke_config("qwen1.5-0.5b").replace(dtype=torch.float32, head_dim=32, num_heads=2,
+                                                    num_kv_heads=2)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    pos = torch.arange(40, device=cuda).expand(2, 40)
+    build.reset_launches()
+    logits, state = model.prefill(toks, pos, max_len=44)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == cfg.num_layers
+    ref, ref_state = model.to("cpu").prefill(toks.cpu(), pos.cpu(), max_len=44)
+    torch.testing.assert_close(logits.cpu(), ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(state.data["k"].cpu(), ref_state.data["k"], rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_refuses_unaligned_bf16(cuda):
+    q = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, 8, 2, 17), dtype=torch.bfloat16, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, kv, kv)
