@@ -10,7 +10,11 @@ last line is printed:
    CUDA source, all started together, and the build time.
 2. Kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (the 1.2 M-tuple
-   Shenzhen window at Geohash-6), twice, bitwise reproducible.  The edge
+   Shenzhen window at Geohash-6), twice, bitwise reproducible.
+   stratified_stats runs on the window's slots and ``value`` column with
+   f32 values and a bool mask (fraction 0.8), with bf16 values, and with a
+   float weight mask and about 1% of the indices set to -1 and past the
+   last slot, and at the reference kernel test's three shapes.  The edge
    megakernel runs in sidx mode with three members (SRS ranks against three
    n_k rows), in latlon mode with two members (two ROI masks, two
    fractions), and in sidx mode once more with bf16 staging.  Flash
@@ -31,7 +35,27 @@ last line is printed:
    refined fused pass of three SRS members (fractions 0.2, 0.5, 0.8), with
    its own counters, on the card against the CPU.
    Last, every execute again on the segment backend, twice: bitwise equal,
-   and the pallas run's sample.
+   and the pallas run's sample.  Then three more paths, each with its own
+   counters: raw mode (SRS and Bernoulli on pallas and fused, a buffer of
+   the whole window, equal to the preagg run, and one of 500 000 tuples,
+   whose truncation is counted exactly and held against the CPU); the
+   uplink codecs (sparse and delta:sparse bitwise equal to the dense run
+   with fewer bytes, topk16 / quantize16 / quantize8 with exact counts and
+   values within each codec's declared bound); and the public
+   ``stratified_stats`` op on the window, as the reference's kernel
+   benchmark calls it.
+3s. The continuous-query session: 16 dashboard tenants of
+   ``benchmarks/multitenant_bench.py`` over two ROIs, three refined SRS
+   members with their own fractions, a Bernoulli grouped query under an
+   SLO, a raw-mode query and a bootstrap query, in tumbling, sliding (3)
+   and hopping (6, 2) windows, over the Shenzhen stream cut into 6 panes of
+   200 000 tuples; dense and with the delta:sparse codec, on pallas and
+   fused.  A one-query step equals ``execute`` bit for bit, batched emits
+   the per-query emits, two runs each other, the lossless codec the dense
+   session (with fewer bytes); sliding windows within 10% MAPE of the exact
+   answer; the card against the CPU on the Chicago stream (13 panes of
+   10 000 tuples, Geohash-5) with the same uniforms and normals.  Host ms
+   per step and syncs per step.
 4. Serving: qwen1.5-0.5b at full width and depth (24 layers, d 1024, 16
    heads, vocabulary 151936) with weights from a seeded CUDA generator
    serves 8 requests of 1024 prompt tokens in batches of 4, 32 greedy
@@ -47,17 +71,24 @@ last line is printed:
    cache flushed before each, for every kernel, its plain version and the
    library call where one computes the same function (device time), and
    each kernel's host-clock time per call in a loop; host clock for each
-   ``execute`` on both backends in turns, with the synchronizing CUDA
+   ``execute`` on both backends in turns (raw mode and the delta:sparse
+   codec too, on the Shenzhen window), with the synchronizing CUDA
    operations one execute makes and the allocator's cudaMalloc calls, then
    one profiled ``execute`` per method and backend and one profiled
    prefill and decode step (device busy time and the heaviest device ops).
+   stratified_stats is timed at the window's shape in f32 and bf16, its
+   library call one f32 ``index_add_`` of the stacked rows.
 
-The line before the card line is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds.  The line before the card line is a JSON
+object with one entry per kernel (``launches``: the executes of phase 3 for
+the edge kernels, the public op's path for stratified_stats, the serving
+run for flash attention); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -108,6 +139,21 @@ FLASH_SHAPES = [(1, 256, 4, 4, 64), (2, 512, 8, 2, 64), (1, 512, 8, 1, 128),
                 (1, 256, 4, 4, 112), (1, 300, 4, 2, 64)]
 FLASH_SERVE_SHAPE = (4, 1024, 16, 16, 64)
 SERVE_ARCH = "qwen1.5-0.5b"
+# stratified_stats: the reference kernel test's (N, S) shapes
+STRAT_SHAPES = [(100, 7), (4096, 512), (20000, 1300)]
+RAW_CAPACITY = 500_000  # below the ~960 k tuples kept at 0.8: truncates
+CODEC_SPECS = ("sparse", "delta:sparse", "topk16", "quantize16", "quantize8")
+LOSSLESS_SPECS = ("sparse", "delta:sparse")
+QUANT_QMAX = {"quantize16": 32764, "quantize8": 124}  # core/codec.py's grids
+# the session: panes of the Shenzhen stream, and the dashboard tenants' two
+# ROIs of benchmarks/multitenant_bench.py; Chicago's halves for the
+# card-vs-CPU session
+SESSION_PANE, CHICAGO_PANE = 200_000, 10_000
+SHENZHEN_ROIS = (((22.45, 22.66), (113.76, 114.64)), ((22.64, 22.86), (113.76, 114.64)))
+CHICAGO_ROIS = (((41.60, 41.85), (-87.95, -87.50)), ((41.80, 42.05), (-87.95, -87.50)))
+SESSION_TENANTS = 16
+SESSION_SLO_TARGET = 0.05
+FRACTION_TOL = 1e-5
 SERVE_REQUESTS, SERVE_BATCH, PROMPT_LEN, MAX_NEW = 8, 4, 1024, 32
 # the card against the CPU: the serving config cut to 2 layers, in f32
 CROSS_LAYERS, CROSS_BATCH, CROSS_LEN, CROSS_STEPS = 2, 2, 512, 4
@@ -122,6 +168,8 @@ KERNEL_INFO = {
                     "src/repro/kernels/edge_reduce/edge_reduce.py:77"),
     "edge_megakernel": ("src/repro_torch/csrc/edge_megakernel.cu",
                         "src/repro/kernels/edge_megakernel/edge_megakernel.py:210"),
+    "stratified_stats": ("src/repro_torch/csrc/stratified_stats.cu",
+                         "src/repro/kernels/stratified_stats/stratified_stats.py:54"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:66"),
 }
@@ -265,14 +313,14 @@ def bootstrap_query():
                  group_by="neighborhood", bootstrap_replicates=REPLICATES)
 
 
-def refined_members():
+def refined_members(second: str = "occupancy"):
     """Three SRS members of one fusion group with their own aggregates."""
     from repro_torch.core import AggSpec, Query
 
     return [Query(aggs=(AggSpec("mean", "value"), AggSpec("max", "value")), bootstrap_replicates=0),
-            Query(aggs=(AggSpec("p50", "value"), AggSpec("mean", "occupancy")),
+            Query(aggs=(AggSpec("p50", "value"), AggSpec("mean", second)),
                   group_by="neighborhood", bootstrap_replicates=0),
-            Query(aggs=(AggSpec("sum", "occupancy"), AggSpec("min", "value")),
+            Query(aggs=(AggSpec("sum", second), AggSpec("min", "value")),
                   bootstrap_replicates=0)]
 
 
@@ -514,8 +562,75 @@ def phase_kernel_checks(x) -> dict:
             else:
                 check(torch.equal(got, ref), f"edge_megakernel {label}: {name} differs from the plain version")
         check(float(k1.keep.sum()) > 0, f"edge_megakernel {label}: nothing kept")
+    err["stratified_stats"] = stratified_checks(x)
     err["flash_attention"], err["flash_by_shape"] = flash_checks(x["lat"].device)
     return err
+
+
+def stratified_cases(x) -> dict:
+    """The public stratified_stats op's inputs on the Shenzhen window: its
+    slots, the ``value`` column and a Bernoulli keep mask at FRACTION (f32
+    and bf16 values), and a float weight mask with about 1% of the indices
+    at -1 and 1% past the last slot (which must contribute nothing)."""
+    sidx, vals, s = x["sidx"], x["values"][0].contiguous(), x["num_slots"]
+    gen = torch.Generator(device=sidx.device).manual_seed(SEED + 2)
+    weights = torch.rand(sidx.shape[0], generator=gen, device=sidx.device)
+    pick = torch.rand(sidx.shape[0], generator=gen, device=sidx.device)
+    odd = torch.where(pick < 0.01, -1, torch.where(pick < 0.02, s + sidx % 7, sidx))
+    keep = x["u"] < FRACTION
+    return {"f32": (sidx, vals, keep), "bf16": (sidx, vals.to(torch.bfloat16), keep),
+            "weights_out_of_range": (odd, vals, weights)}
+
+
+def check_stratified(label: str, args, s: int) -> tuple[float, tuple]:
+    """The kernel twice (bitwise equal) against its plain version: counts
+    exact under a bool mask, sums within the edge_reduce tolerances."""
+    from repro_torch.kernels.stratified_stats import stratified_stats, stratified_stats_plain
+
+    a, b = stratified_stats(*args, s), stratified_stats(*args, s)
+    plain = stratified_stats_plain(*args, s)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, h) for g, h in zip(a, b)), f"stratified_stats {label}: two runs differ")
+    check(all(g.shape == (s,) and g.dtype == torch.float32 for g in a),
+          f"stratified_stats {label}: outputs {[(g.dtype, tuple(g.shape)) for g in a]}")
+    if args[2].dtype == torch.bool:
+        check(torch.equal(a[0], plain[0]), f"stratified_stats {label}: counts differ from plain")
+    for name, got, ref in zip(("count", "s1", "s2"), a, plain):
+        check(torch.allclose(got, ref, rtol=ER_RTOL, atol=ER_ATOL),
+              f"stratified_stats {label}: {name} beyond rtol={ER_RTOL}, atol={ER_ATOL}")
+    return max(float((g - r).abs().max()) for g, r in zip(a, plain)), a
+
+
+def stratified_checks(x) -> float:
+    """stratified_stats at the main path's shape (three input variants) and
+    at the reference kernel test's shapes in f32 and bf16; keeps the main
+    shape's outputs in ``x`` for the op path of phase 3."""
+    from repro_torch.kernels.stratified_stats import stratified_stats_plain
+
+    s = x["num_slots"]
+    cases = stratified_cases(x)
+    worst, first = 0.0, {}
+    for label, args in cases.items():
+        e, first[label] = check_stratified(label, args, s)
+        worst = max(worst, e)
+    # the out-of-range tuples contribute nothing: the same sums without them
+    sidx, vals, w = cases["weights_out_of_range"]
+    inside = (sidx >= 0) & (sidx < s)
+    ref = stratified_stats_plain(sidx[inside], vals[inside], w[inside], s)
+    check(all(torch.allclose(g, r, rtol=ER_RTOL, atol=ER_ATOL)
+              for g, r in zip(first["weights_out_of_range"], ref)),
+          "stratified_stats: out-of-range indices changed the sums")
+    dev = x["sidx"].device
+    for n, slots in STRAT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        sidx = torch.randint(0, slots, (n,), generator=gen, device=dev, dtype=torch.int32)
+        vals = torch.randn(n, generator=gen, device=dev) * 3 + 10
+        keep = torch.rand(n, generator=gen, device=dev) < 0.7
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"{n}x{slots} {str(dt).removeprefix('torch.')}"
+            worst = max(worst, check_stratified(label, (sidx, vals.to(dt), keep), slots)[0])
+    x["strat_cases"], x["strat_first"] = cases, first
+    return worst
 
 
 def flash_inputs(shape, dtype, dev):
@@ -558,7 +673,7 @@ def expected_kernels(backend: str, method: str) -> set:
     return {"edge_megakernel"} | ({"geohash"} if method == "srs" else set())
 
 
-def phase_end_to_end(windows, dev) -> tuple[dict, list]:
+def phase_end_to_end(windows, dev) -> tuple[dict, list, dict]:
     """The main path: reset the launch counters, run every execute on the
     card, read the counters; then the repeats and the checks."""
     from repro_torch.core import EdgeCloudPipeline, PipelineConfig
@@ -618,7 +733,7 @@ def phase_end_to_end(windows, dev) -> tuple[dict, list]:
     lines.append(bootstrap_checks(boot, boot_moved, pipes[("shenzhen", "fused")], windows, dev))
     check(all(launches[k] > 0 for k in EDGE_KERNELS), f"a kernel never launched: {launches}")
     lines.append(segment_checks(windows, by_run, dev))
-    return launches, lines
+    return launches, lines, by_run
 
 
 def segment_checks(windows, by_run, dev) -> str:
@@ -720,6 +835,394 @@ def phase_refined(windows, dev) -> tuple[dict, list]:
     lines.append(f"refined fused pass, 3 SRS members at {REFINED_FRACTIONS}: launches={launches}, "
                  f"n_sampled={sampled}, comm_bytes={comm} (GPU == CPU counters and per-stratum n, "
                  "estimates within tolerance, each member == its own execute)")
+    return launches, lines
+
+
+def counted(fn):
+    """Run ``fn`` with every launch counter at 0 before it; -> (its result,
+    the counters read just after it)."""
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(build.LAUNCHES)
+
+
+def phase_raw(windows, by_run, dev) -> tuple[dict, list]:
+    """Raw mode on the Shenzhen window, its own path (counters zeroed just
+    before, read just after): SRS and Bernoulli on pallas and fused, with a
+    buffer of the whole window and one of RAW_CAPACITY tuples.  Then the
+    checks: the whole-window buffer gives the preagg run's sample and
+    estimates; the small one counts its truncation exactly and ships
+    ``raw_bytes``; two card runs are bitwise equal; the card against the
+    CPU on the same uniforms."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+    from repro_torch.core.query import raw_bytes
+
+    table, cols, second = windows["shenzhen"]
+    n = len(cols["lat"])
+    cases = [(b, m, cap) for b in BACKENDS for m in ("srs", "bernoulli") for cap in (n, RAW_CAPACITY)]
+
+    def pipe(backend, cap, device=dev, tbl=table):
+        return EdgeCloudPipeline(tbl, PipelineConfig(backend=backend, raw_capacity=cap), device=device)
+
+    def raw_query(method):
+        return dataclasses.replace(queries(second, method)["flat"], mode="raw")
+
+    pipes = {(b, cap): pipe(b, cap) for b, _, cap in cases}
+    runs, launches = counted(lambda: [
+        pipes[(b, cap)].execute(raw_query(m), torch.Generator(device=dev).manual_seed(SEED), cols,
+                                FRACTION) for b, m, cap in cases])
+    check(all(launches[k] > 0 for k in EDGE_KERNELS), f"raw mode: a kernel never launched: {launches}")
+    lines = []
+    cpu_table = table.to("cpu")
+    u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    for (backend, method, cap), res in zip(cases, runs):
+        label = f"raw {backend}/{method}/capacity {cap}"
+        q = raw_query(method)
+        again = pipes[(backend, cap)].execute(q, torch.Generator(device=dev).manual_seed(SEED), cols,
+                                              FRACTION)
+        check(same_bits(res.estimates, again.estimates), f"{label}: two executes differ")
+        check(int(res.comm_bytes) == raw_bytes(pipes[(backend, cap)].plan(q), cap),
+              f"{label}: comm_bytes {int(res.comm_bytes)}")
+        dense = by_run[("shenzhen", backend, method, "flat")]
+        kept = int(dense.n_sampled)
+        check(int(res.n_truncated) == max(kept - cap, 0),
+              f"{label}: n_truncated {int(res.n_truncated)} for {kept} kept")
+        if cap == n:
+            compare_results(res, dense, f"{label} vs preagg", exact_n=True)
+            same = "the preagg run's sample and estimates"
+        else:
+            ref = pipe(backend, cap, "cpu", cpu_table).execute(q, None, cols, FRACTION,
+                                                               uniforms=u.cpu())
+            check(int(ref.n_truncated) == int(res.n_truncated), f"{label}: CPU n_truncated")
+            compare_results(res, ref, f"{label} GPU vs CPU", exact_n=True)
+            same = "GPU == CPU"
+        lines.append(f"{label}: n_sampled={int(res.n_sampled)} n_truncated={int(res.n_truncated)} "
+                     f"comm_bytes={int(res.comm_bytes)} ({same}; two GPU runs bitwise equal)")
+    return launches, lines
+
+
+def decoded_within_bound(spec: str, dense: dict, decoded: dict, label: str) -> None:
+    """A codec's decoded states against the dense ones: rows that drive the
+    bounds (counts, sketch bins) exact, except top-k bins, whose per-stratum
+    totals are exact; quantized rows within half a step of their row's
+    scale plus one ulp of the result (``core/codec.py``); every row exact,
+    bit for bit, for a lossless codec."""
+    from repro_torch.core.codec import flatten_stats
+
+    want = {(r.column, r.kind, r.name): r for r in flatten_stats(dense)}
+    got = {(r.column, r.kind, r.name): r for r in flatten_stats(decoded)}
+    check(want.keys() == got.keys(), f"{label}: rows {sorted(got)}")
+    tiny = float(np.finfo(np.float32).tiny)
+    for key, row in want.items():
+        a, b = row.array, got[key].array
+        if spec.startswith("topk") and key[2] == "bins":
+            check(np.array_equal(a.sum(1), b.sum(1)), f"{label}: {key} totals differ")
+        elif spec.startswith("quantize") and row.quantize_ok:
+            fin = np.isfinite(a)
+            check(np.array_equal(np.isfinite(b), fin) and np.array_equal(a[~fin], b[~fin]),
+                  f"{label}: {key} non-finite entries differ")
+            amax = float(np.abs(a[fin]).max()) if fin.any() else 0.0
+            scale = max(float(np.float32(amax / QUANT_QMAX[spec])), tiny) if amax > 0 else 1.0
+            # the declared bound: half a step, plus one ulp of the f32 result
+            err = np.abs(b[fin].astype(np.float64) - a[fin])
+            limit = 0.5 * scale + np.spacing(np.abs(b[fin]))
+            check(bool(np.all(err <= limit)),
+                  f"{label}: {key} off by {err.max()} beyond scale/2 = {0.5 * scale} + 1 ulp")
+        else:
+            check(np.array_equal(a.view(np.uint32), b.view(np.uint32)), f"{label}: {key} changed")
+
+
+def phase_codecs(windows, by_run, dev) -> tuple[dict, list]:
+    """The uplink codecs on the Shenzhen window, their own path: the flat
+    and grouped SRS queries on pallas and the bootstrap query on fused
+    through every codec spec, with the dense runs' uniforms and normals
+    (the same generator seed).  Lossless specs: estimates and states bitwise
+    equal to the dense run; every spec ships fewer bytes than the dense
+    model; lossy specs keep counts exact and values within their bounds."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+    from repro_torch.core.query import preagg_bytes
+
+    table, cols, second = windows["shenzhen"]
+    qs = dict(queries(second, "srs"), bootstrap=bootstrap_query())
+    cases = [(spec, qname) for spec in CODEC_SPECS for qname in qs
+             if qname != "bootstrap" or spec in LOSSLESS_SPECS]
+
+    def backend_of(qname):
+        return "fused" if qname == "bootstrap" else "pallas"
+
+    pipes = {(spec, b): EdgeCloudPipeline(table, PipelineConfig(backend=b, uplink_codec=spec),
+                                          device=dev) for spec in CODEC_SPECS for b in BACKENDS}
+    runs, launches = counted(lambda: [
+        pipes[(spec, backend_of(qname))].execute(qs[qname], torch.Generator(device=dev)
+                                                 .manual_seed(SEED), cols, FRACTION)
+        for spec, qname in cases])
+    check(all(launches[k] > 0 for k in EDGE_KERNELS if k != "sample_mask"),
+          f"codecs: a kernel never launched: {launches}")
+    dense_boot = EdgeCloudPipeline(table, PipelineConfig(backend="fused"), device=dev).execute(
+        qs["bootstrap"], torch.Generator(device=dev).manual_seed(SEED), cols, FRACTION)
+    lines = []
+    for (spec, qname), res in zip(cases, runs):
+        label = f"codec {spec}/{qname}"
+        dense = dense_boot if qname == "bootstrap" else by_run[("shenzhen", "pallas", "srs", qname)]
+        dense_bytes = preagg_bytes(pipes[(spec, "pallas")].plan(qs[qname]), table.num_slots)
+        check(isinstance(res.comm_bytes, int) and res.comm_bytes < dense_bytes,
+              f"{label}: {res.comm_bytes} bytes against the dense {dense_bytes}")
+        for name in ("n_sampled", "n_valid", "n_overflow"):
+            check(int(getattr(res, name)) == int(getattr(dense, name)), f"{label}: {name}")
+        if spec in LOSSLESS_SPECS:
+            check(same_bits(res.estimates, dense.estimates), f"{label}: estimates differ from dense")
+            decoded_within_bound("lossless", dense.stats, res.stats, label)
+            kind = "bitwise equal to dense"
+        else:
+            decoded_within_bound(spec, dense.stats, res.stats, label)
+            kind = "counts exact, values within the codec's bound"
+        lines.append(f"{label}: {res.comm_bytes} bytes on the wire against {dense_bytes} dense "
+                     f"({dense_bytes / res.comm_bytes:.1f}x); {kind}")
+    return launches, lines
+
+
+def phase_stratified_op(x) -> tuple[dict, str]:
+    """The public op ``repro_torch.kernels.stratified_stats`` on the window
+    (per-stratum moments of the sampled ``value`` column, as the reference's
+    kernel benchmark calls it), its own path: each input variant once, the
+    counters zeroed just before and read just after; the same bits as the
+    kernel checks of phase 2."""
+    from repro_torch.kernels import stratified_stats as op
+
+    s = x["num_slots"]
+    outs, launches = counted(lambda: {label: op.stratified_stats(*args, s)
+                                      for label, args in x["strat_cases"].items()})
+    check(launches["stratified_stats"] == len(outs),
+          f"stratified_stats op: {launches['stratified_stats']} launches for {len(outs)} calls")
+    for label, out in outs.items():
+        check(all(torch.equal(a, b) for a, b in zip(out, x["strat_first"][label])),
+              f"stratified_stats op {label}: differs from phase 2's run")
+    kept = int(outs["f32"][0].sum())
+    return launches, (f"stratified_stats op on N={x['sidx'].shape[0]} S+1={s}: "
+                      f"{len(outs)} calls ({', '.join(outs)}), launches={launches['stratified_stats']}, "
+                      f"{kept} tuples kept in the f32 call; phase 2's bits")
+
+
+# -- the session ---------------------------------------------------------------
+
+
+def session_panes(name: str) -> tuple:
+    """(table, panes, second column, ROIs) of a session stream."""
+    from repro_torch.core import CHICAGO_BBOX, SHENZHEN_BBOX, make_table, pane_windows
+    from repro_torch.data import chicago_aq_stream, shenzhen_taxi_stream
+
+    if name == "shenzhen":
+        panes = list(pane_windows(shenzhen_taxi_stream(seed=SEED), pane_tuples=SESSION_PANE))
+        table = make_table(*SHENZHEN_BBOX, precision=6, neighborhood_precision=4)
+        return table, panes, "occupancy", SHENZHEN_ROIS
+    panes = list(pane_windows(chicago_aq_stream(seed=SEED), pane_tuples=CHICAGO_PANE))
+    return make_table(*CHICAGO_BBOX, precision=5), panes, "temperature", CHICAGO_ROIS
+
+
+def register_tenants(sess, second: str, rois) -> dict:
+    """The session's registrations: the dashboard tenants of
+    ``benchmarks/multitenant_bench._tenants`` (mean of two columns, two
+    ROIs, two confidences, analytic bounds) in tumbling, sliding (3) and
+    hopping (6, 2) windows; the refined SRS members at their own fractions;
+    a Bernoulli grouped query under an SLO; a raw-mode flat query; the
+    bootstrap query."""
+    from repro_torch.core import SLO, AggSpec, Query, WindowSpec
+
+    shapes = (WindowSpec(), WindowSpec("sliding", size=3), WindowSpec("hopping", size=6, stride=2))
+    cols = ("value", second)
+    regs = {"tenants": [
+        sess.register(Query(aggs=(AggSpec("mean", cols[i % 2]),), confidence=(0.95, 0.99)[(i // 2) % 2],
+                            roi=rois[(i // 4) % 2], bootstrap_replicates=0), window=shapes[i % 3])
+        for i in range(SESSION_TENANTS)]}
+    regs["refined"] = [sess.register(q, initial_fraction=f)
+                       for q, f in zip(refined_members(second), REFINED_FRACTIONS)]
+    regs["bernoulli"] = sess.register(
+        Query(aggs=(AggSpec("mean", "value"), AggSpec("p50", "value")), group_by="neighborhood",
+              method="bernoulli", bootstrap_replicates=0),
+        slo=SLO(target_relative_error=SESSION_SLO_TARGET), window=shapes[1])
+    regs["raw"] = sess.register(dataclasses.replace(queries(second, "srs")["flat"], mode="raw"),
+                                window=shapes[2])
+    regs["bootstrap"] = sess.register(bootstrap_query())
+    return regs
+
+
+def run_session(pipe, panes, second, rois, batched=True, uniforms=None, normals=None):
+    """A fresh session over ``pipe`` stepped through ``panes`` with a seeded
+    generator (or the given per-pane uniforms and normals); -> (session,
+    registrations, steps, host ms per step)."""
+    from repro_torch.core import StreamSession
+
+    sess = StreamSession(pipe, initial_fraction=FRACTION, batched_finalize=batched)
+    regs = register_tenants(sess, second, rois)
+    gen = None if uniforms is not None else torch.Generator(device=pipe.device).manual_seed(SEED)
+    steps, ms = [], []
+    for i, pane in enumerate(panes):
+        t0 = time.perf_counter()
+        steps.append(sess.step(gen, pane, uniforms=None if uniforms is None else uniforms[i],
+                               normals=None if normals is None else normals[i]))
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sess, regs, steps, ms
+
+
+def same_steps(a, b, label: str) -> int:
+    """Two runs' steps bitwise equal: emitted queries, estimates, counters
+    and fractions; -> the number of results compared."""
+    check(len(a) == len(b), f"{label}: {len(a)} vs {len(b)} steps")
+    count = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(sorted(x.results) == sorted(y.results), f"{label}: step {i} emits differ")
+        check(x.fractions == y.fractions, f"{label}: step {i} fractions differ")
+        for qid in x.results:
+            rx, ry = x.results[qid], y.results[qid]
+            check(same_bits(rx.estimates, ry.estimates), f"{label}: step {i} query {qid} differs")
+            for name in ("n_sampled", "n_valid", "n_overflow", "n_truncated"):
+                check(int(getattr(rx, name)) == int(getattr(ry, name)),
+                      f"{label}: step {i} query {qid} {name}")
+            count += 1
+    return count
+
+
+def sliding_mape(table, panes, regs, steps) -> float:
+    """MAPE of the sliding tenants' emits against the exact mean over the
+    window's panes (in the table and the ROI), float64 numpy."""
+    from repro_torch.core import geohash
+
+    cpu = table.to("cpu")
+    inside, errs = [], []
+    for p in panes:
+        lat, lon = torch.as_tensor(p.lat), torch.as_tensor(p.lon)
+        inside.append((cpu.lookup(geohash.encode(lat, lon, cpu.precision)) < cpu.num_strata).numpy())
+    for reg in regs["tenants"]:
+        if reg.window.kind != "sliding":
+            continue
+        (la, lb), (oa, ob) = reg.query.roi
+        col = reg.query.aggs[0].column
+        for i, st in enumerate(steps):
+            sel = range(max(0, i - reg.window.size + 1), i + 1)
+            ys = []
+            for j in sel:
+                p = panes[j]
+                lat, lon = p.lat.astype(np.float32), p.lon.astype(np.float32)
+                ok = inside[j] & (lat >= np.float32(la)) & (lat <= np.float32(lb)) & \
+                    (lon >= np.float32(oa)) & (lon <= np.float32(ob)) & p.valid
+                ys.append(np.asarray(p.columns[col], np.float64)[ok])
+            truth = float(np.mean(np.concatenate(ys)))
+            est = float(st.results[reg.qid].estimates[reg.query.aggs[0].key].value)
+            errs.append(abs(est - truth) / abs(truth))
+    return float(np.mean(errs))
+
+
+def session_cpu_check(dev) -> str:
+    """The card against the CPU on the Chicago stream: the same
+    registrations stepped with the same per-pane uniforms and bootstrap
+    normals; counters exact, estimates within tolerance, fractions within
+    FRACTION_TOL."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig
+    from repro_torch.core.query import bootstrap_normals
+
+    table, panes, second, rois = session_panes("chicago")
+    cpu_table = table.to("cpu")
+    uniforms = [torch.rand(len(p.lat), generator=torch.Generator().manual_seed(SEED + i))
+                for i, p in enumerate(panes)]
+    normals = [functools.partial(lambda seed, plan, stats: bootstrap_normals(
+        plan, cpu_table, stats, torch.Generator().manual_seed(seed)), SEED + i)
+        for i in range(len(panes))]
+    cfg = PipelineConfig(backend="pallas", uplink_codec="delta:sparse")
+    _, regs, on_card, _ = run_session(EdgeCloudPipeline(table, cfg, device=dev), panes, second, rois,
+                                      uniforms=[u.to(dev) for u in uniforms], normals=normals)
+    _, _, on_cpu, _ = run_session(EdgeCloudPipeline(cpu_table, cfg, device="cpu"), panes, second,
+                                  rois, uniforms=uniforms, normals=normals)
+    boot = regs["bootstrap"].qid
+    count = 0
+    for i, (g, c) in enumerate(zip(on_card, on_cpu)):
+        label = f"chicago session step {i} GPU vs CPU"
+        check(sorted(g.results) == sorted(c.results), f"{label}: emits differ")
+        for qid in g.results:
+            compare_results(g.results[qid], c.results[qid], f"{label} query {qid}",
+                            bounds=qid == boot)
+            count += 1
+        for qid, f in c.fractions.items():
+            check(abs(g.fractions[qid] - f) <= FRACTION_TOL, f"{label}: fraction of query {qid}")
+    return (f"chicago session ({len(panes)} panes of {CHICAGO_PANE}, Geohash-5, pallas, "
+            f"delta:sparse): {count} results GPU == CPU (counters exact, estimates within "
+            f"tolerance, fractions within {FRACTION_TOL}) under the same uniforms and normals")
+
+
+def phase_session(dev, card: str) -> tuple[dict, list]:
+    """The continuous-query path: the registered tenants over the Shenzhen
+    stream, dense and with the delta:sparse codec, on pallas and fused,
+    counters zeroed just before these four runs and read just after; then
+    the checks, times and syncs."""
+    from repro_torch.core import EdgeCloudPipeline, PipelineConfig, StreamSession
+
+    table, panes, second, rois = session_panes("shenzhen")
+    configs = [(b, c) for b in BACKENDS for c in (None, "delta:sparse")]
+    pipes = {(b, c): EdgeCloudPipeline(table, PipelineConfig(backend=b, uplink_codec=c), device=dev)
+             for b, c in configs}
+    runs, launches = counted(lambda: {
+        cfg: run_session(pipes[cfg], panes, second, rois) for cfg in configs})
+    check(all(launches[k] > 0 for k in EDGE_KERNELS), f"session: a kernel never launched: {launches}")
+    lines = [f"session over {len(panes)} panes of {SESSION_PANE} (Shenzhen, Geohash-6, "
+             f"{table.num_slots} slots): launches={launches}"]
+    for (backend, codec), (sess, regs, steps, ms) in runs.items():
+        emits = sum(len(st.results) for st in steps)
+        batches = sum(len(st.results._batches) for st in steps)
+        lines.append(
+            f"[{card}] session {backend}/{codec or 'dense'}: {len(sess.registrations)} queries in "
+            f"{len(sess._fusion_groups)} fusion groups, {emits} results ({batches} batched emits), "
+            f"{sess.total_passes} passes, {sess.total_comm_bytes} uplink bytes; host ms per step "
+            f"median {statistics.median(ms):.3f} (first {ms[0]:.3f}, all "
+            f"{', '.join(f'{t:.1f}' for t in ms)}); programs built {sess.pipe.compile_count}")
+    for backend in BACKENDS:
+        sess, regs, dense, _ = runs[(backend, None)]
+        coded_sess, _, coded, _ = runs[(backend, "delta:sparse")]
+        n = same_steps(dense, coded, f"session {backend}: delta:sparse vs dense")
+        check(coded_sess.total_comm_bytes < sess.total_comm_bytes,
+              f"session {backend}: codec bytes {coded_sess.total_comm_bytes} >= dense")
+        lines.append(f"session {backend}: delta:sparse bitwise equal to dense over {n} results, "
+                     f"{coded_sess.total_comm_bytes} bytes against {sess.total_comm_bytes} "
+                     f"({sess.total_comm_bytes / coded_sess.total_comm_bytes:.1f}x fewer)")
+        err = sliding_mape(table, panes, regs, dense)
+        check(err < MAPE_LIMIT, f"session {backend}: sliding-window MAPE {err:.4f} >= {MAPE_LIMIT}")
+        lines.append(f"session {backend}: sliding windows' MAPE against the exact answer {err:.6f}")
+        check(any(len(st.results._batches) for st in dense), f"session {backend}: no batched emit")
+        hop = [st for st in dense if regs["raw"].qid in st.results]
+        check(len(hop) == 3 and int(hop[-1].results[regs["raw"].qid].n_valid) > 0,
+              f"session {backend}: the hopping window emitted {len(hop)} times")
+    # batched == per-query emits, and a second run, on pallas
+    base = runs[("pallas", None)][2]
+    n = same_steps(base, run_session(pipes[("pallas", None)], panes, second, rois,
+                                     batched=False)[2], "session: batched vs per-query emits")
+    same_steps(base, run_session(pipes[("pallas", None)], panes, second, rois)[2],
+               "session: two runs")
+    lines.append(f"session pallas: batched emits == per-query emits bit for bit ({n} results); "
+                 "two runs bitwise equal")
+    # a one-query session's first step is execute
+    for backend in BACKENDS:
+        pipe = pipes[(backend, None)]
+        q = bootstrap_query()
+        want = pipe.execute(q, torch.Generator(device=dev).manual_seed(SEED), panes[0], FRACTION)
+        one = StreamSession(pipe, initial_fraction=FRACTION)
+        reg = one.register(q)
+        got = one.step(torch.Generator(device=dev).manual_seed(SEED), panes[0]).results[reg.qid]
+        check(same_bits(got.estimates, want.estimates), f"session {backend}: step != execute")
+    lines.append("one-query session step == execute bit for bit (bootstrap query, pallas and fused)")
+    # syncs per step, on a session two panes in
+    for cfg in configs:
+        sess = StreamSession(pipes[cfg], initial_fraction=FRACTION)
+        register_tenants(sess, second, rois)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for pane in panes[:2]:
+            sess.step(gen, pane)
+        syncs = sync_count(lambda: sess.step(gen, panes[2]))
+        lines.append(f"session {cfg[0]}/{cfg[1] or 'dense'}: {syncs} syncs in one step "
+                     f"({len(sess._fusion_groups)} groups)")
+    lines.append(session_cpu_check(dev))
     return launches, lines
 
 
@@ -845,6 +1348,7 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
     from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
     from repro_torch.kernels.geohash import geohash_encode, geohash_encode_plain
     from repro_torch.kernels.sample_mask import sample_mask, sample_mask_plain
+    from repro_torch.kernels.stratified_stats import stratified_stats, stratified_stats_plain
 
     timer = Timer(dev)
     n, s, c = x["sidx"].shape[0], x["num_slots"], x["values"].shape[0]
@@ -883,6 +1387,24 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
             bound_ms(n * (4 + 4 * c + 1) + 4 * s * (1 + 2 * c), n * (1 + 4 * c)),
         ),
     }
+    # stratified_stats at the main shape with f32 values and a bool mask
+    # (the JSON entry) and with bf16 values; the library call is one f32
+    # index_add_ of the stacked (N, 3) rows (float atomics: timed only)
+    sidx_s, vals_s, keep_s = x["strat_cases"]["f32"]
+    m_s = keep_s.to(torch.float32)
+    rows_s = torch.stack([m_s, m_s * vals_s, m_s * vals_s * vals_s], 1)
+    for label, case in (("stratified_stats", "f32"), ("stratified_stats/bf16", "bf16")):
+        args = x["strat_cases"][case]
+        nbytes = n * (4 + args[1].element_size() + 1) + 3 * 4 * s
+        calls[label] = (
+            functools.partial(stratified_stats, *args, s),
+            functools.partial(stratified_stats_plain, *args, s),
+            (lambda: torch.zeros((s, 3), device=dev).index_add_(0, sidx_s, rows_s))
+            if case == "f32" else None,
+            # index, value, mask in; three sums per slot out; 2 products and
+            # 3 adds a tuple
+            bound_ms(nbytes, 5 * n),
+        )
     # the megakernel at execute's single-member shapes: latlon (Bernoulli,
     # the JSON entry), sidx (SRS) and latlon for the flat query (no sketch);
     # no single PyTorch call computes this function
@@ -940,22 +1462,29 @@ def flash_calls(shape, dtype, dev):
 
 def execute_times(windows, dev, card: str) -> list:
     """Host-clock latency of each ``execute`` on both backends, timed in
-    turns (pallas, fused, fused, pallas) on one card; then one profiled run
-    per method and backend on the Shenzhen flat query: device busy time and
-    the heaviest device ops.  The profiles come last because a profiler
-    session leaves every later launch slower on the host."""
+    turns (pallas, fused, fused, pallas) on one card, with the raw-mode and
+    codec executes of the Shenzhen window; then one profiled run per method
+    and backend on the Shenzhen flat query: device busy time and the
+    heaviest device ops.  The profiles come last because a profiler session
+    leaves every later launch slower on the host."""
     from repro_torch.core import EdgeCloudPipeline, PipelineConfig
 
     lines, profiles = [], []
     for name, (table, cols, second) in windows.items():
-        pipes = {b: EdgeCloudPipeline(table, PipelineConfig(backend=b), device=dev)
-                 for b in BACKENDS}
         on_dev = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
-        qs = [(f"{method}/{qname}", q) for method in ("srs", "bernoulli")
+        qs = [(f"{method}/{qname}", q, {}) for method in ("srs", "bernoulli")
               for qname, q in queries(second, method).items()]
         if name == "shenzhen":
-            qs.append(("srs/bootstrap", bootstrap_query()))
-        for qlabel, q in qs:
+            srs = queries(second, "srs")
+            qs += [("srs/bootstrap", bootstrap_query(), {}),
+                   ("srs/flat raw", dataclasses.replace(srs["flat"], mode="raw"), {}),
+                   ("srs/flat raw, capacity 500000", dataclasses.replace(srs["flat"], mode="raw"),
+                    {"raw_capacity": RAW_CAPACITY}),
+                   ("srs/flat delta:sparse", srs["flat"], {"uplink_codec": "delta:sparse"}),
+                   ("srs/grouped delta:sparse", srs["grouped"], {"uplink_codec": "delta:sparse"})]
+        for qlabel, q, kw in qs:
+            pipes = {b: EdgeCloudPipeline(table, PipelineConfig(backend=b, **kw), device=dev)
+                     for b in BACKENDS}
             gen = torch.Generator(device=dev).manual_seed(SEED)
             run = {b: functools.partial(pipe.execute, q, gen, on_dev, FRACTION)
                    for b, pipe in pipes.items()}
@@ -973,7 +1502,7 @@ def execute_times(windows, dev, card: str) -> list:
                                      f"the card, two turns), {from_host[b]:.3f} ms (from host "
                                      f"numpy), {syncs[b]} syncs per execute, {mallocs[b]} cudaMalloc "
                                      "in the timed runs" for b in BACKENDS))
-            if name == "shenzhen" and qlabel.endswith("/flat"):
+            if name == "shenzhen" and qlabel in ("srs/flat", "bernoulli/flat"):
                 profiles += [(run[b], f"execute {name}/{b}/{qlabel}") for b in BACKENDS]
     return lines + [profile_line(fn, label, card) for fn, label in profiles]
 
@@ -1010,8 +1539,10 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"[phase 1] kernels built in {phase_build():.2f} s", flush=True)
+    print(f"[phase 1] {len(build.KERNELS)} kernels {list(build.KERNELS)} built in "
+          f"{phase_build():.2f} s", flush=True)
 
+    t0 = time.perf_counter()
     windows = {name: load_window(name) for name in ("shenzhen", "chicago")}
     table, cols, _ = windows["shenzhen"]
     x = kernel_inputs(table, cols, dev)
@@ -1022,23 +1553,43 @@ def main() -> int:
           "bitwise reproducible across two runs", flush=True)
     print("[phase 2] flash_attention max |kernel - plain| by shape (B x S x H x K x dh): "
           + json.dumps(flash_by_shape), flush=True)
+    print(f"[phase 2] {time.perf_counter() - t0:.1f} s", flush=True)
 
-    launches, lines = phase_end_to_end(windows, dev)
+    t0 = time.perf_counter()
+    launches, lines, by_run = phase_end_to_end(windows, dev)
     print("[phase 3] main path (every execute) launches " + json.dumps(launches))
     for line in lines:
         print("[phase 3] " + line, flush=True)
-    refined_launches, lines = phase_refined(windows, dev)
-    print("[phase 3] refined pass launches " + json.dumps(refined_launches))
-    for line in lines:
-        print("[phase 3] " + line, flush=True)
+    for name, phase in (("refined pass", lambda: phase_refined(windows, dev)),
+                        ("raw mode", lambda: phase_raw(windows, by_run, dev)),
+                        ("codecs", lambda: phase_codecs(windows, by_run, dev))):
+        path_launches, lines = phase()
+        print(f"[phase 3] {name} launches " + json.dumps(path_launches))
+        for line in lines:
+            print("[phase 3] " + line, flush=True)
+    op_launches, line = phase_stratified_op(x)
+    print("[phase 3] stratified_stats op launches " + json.dumps(op_launches))
+    print("[phase 3] " + line, flush=True)
+    launches["stratified_stats"] = op_launches["stratified_stats"]
+    print(f"[phase 3] {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    session_launches, lines = phase_session(dev, card)
+    print("[phase 3s] session launches " + json.dumps(session_launches))
+    for line in lines:
+        print("[phase 3s] " + line, flush=True)
+    print(f"[phase 3s] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     serve_launches, lines, served_with = phase_serving(dev, card)
     model, batch, positions, max_len, state, toks = served_with
     print("[phase 4] serving launches " + json.dumps(serve_launches))
     for line in lines:
         print("[phase 4] " + line, flush=True)
     launches["flash_attention"] = serve_launches["flash_attention"]
+    print(f"[phase 4] {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     times, lines = phase_times(x, windows, dev, card)
     # the profiles come last (profiling slows every later launch)
     lines.append(profile_line(lambda: model.prefill(batch, positions, max_len),
@@ -1047,6 +1598,7 @@ def main() -> int:
                               f"decode step {SERVE_ARCH} B {SERVE_BATCH}", card))
     for line in lines:
         print("[phase 5] " + line, flush=True)
+    print(f"[phase 5] {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for name in build.KERNELS:

@@ -9,12 +9,20 @@ Layers (bottom-up):
                 quantile sketch) and the stratified estimators (eqs 1-10)
   bounds      — min/max intervals and the stratified bootstrap behind
                 var / quantile intervals
-  windows     — count-triggered tumbling windows with named value columns
+  feedback    — the QoS controller adapting sampling fractions to SLOs
+                (scalar and vectorized over a tenant population)
+  windows     — count/time tumbling windows with named value columns, and
+                pane-based ``WindowSpec`` (tumbling/sliding/hopping) shapes
   query       — ``Query``/``AggSpec`` specs lowered to plans, plan fusion,
                 and finalize
-  pipeline    — ``EdgeCloudPipeline.execute`` (Algorithm 2, preagg mode) on
-                the segment, pallas or fused backend, and the refined fused
-                pass of a fusion group
+  codec       — uplink wire codecs (sparse, top-k, quantize, delta) for the
+                preagg states, with measured wire bytes
+  pipeline    — ``EdgeCloudPipeline.execute`` (Algorithm 2, preagg or raw
+                mode) on the segment, pallas or fused backend, and the
+                refined fused pass of a fusion group
+  session     — ``StreamSession``: registered continuous queries served by
+                one sampling pass per fusion group and pane, pane-merged
+                sliding/hopping windows, batched emits, the QoS loop
 
 Typical use::
 
@@ -27,9 +35,20 @@ Typical use::
     result.estimates["mean_value"].value  # (num_neighborhoods,) with MoE
 """
 
-from . import bounds, estimators, geohash, pipeline, query, sampling, stratify, windows
+from . import (bounds, codec, estimators, feedback, geohash, pipeline, query, sampling, session,
+               stratify, windows)
+from .codec import (
+    DeltaCodec,
+    QuantizeCodec,
+    SparseCodec,
+    TopKSketchCodec,
+    UplinkCodec,
+    resolve_codec,
+    roundtrip,
+)
 from .estimators import (
     Accumulator,
+    ColumnStats,
     Estimate,
     Extrema,
     Groups,
@@ -40,12 +59,17 @@ from .estimators import (
     group_sum,
     groups_of,
     guarded_s2,
+    merge_accs,
+    merge_accs_panes,
+    merge_column_stats,
+    merge_column_stats_panes,
     merge_stats,
     register_accumulator,
     sample_stats,
     sketch_quantile,
 )
-from .pipeline import EdgeCloudPipeline, PipelineConfig, edge_sample
+from .feedback import SLO, ControllerState, EventPolicy, StackedSLO
+from .pipeline import EdgeCloudPipeline, PipelineConfig, WindowResult, edge_sample
 from .query import (
     AggEstimate,
     AggSpec,
@@ -61,7 +85,8 @@ from .query import (
     lower,
     refined_preagg_bytes,
 )
-from .sampling import SampleResult, edgesos
+from .sampling import SampleResult, compact, edgesos
+from .session import PlanDecision, Registration, SessionStep, StreamSession
 from .stratify import (
     CHICAGO_BBOX,
     SHENZHEN_BBOX,
@@ -70,36 +95,55 @@ from .stratify import (
     make_table_from_codes,
     resolve_device,
 )
-from .windows import WindowBatch, count_windows
+from .windows import WindowBatch, WindowSpec, count_windows, pane_windows, time_windows
 
 __all__ = [
-    "CHICAGO_BBOX",
-    "SHENZHEN_BBOX",
     "Accumulator",
     "AggEstimate",
     "AggSpec",
+    "CHICAGO_BBOX",
+    "ColumnStats",
+    "ControllerState",
+    "DeltaCodec",
     "EdgeCloudPipeline",
     "Estimate",
+    "EventPolicy",
     "Extrema",
     "FusedPlan",
     "Groups",
     "PipelineConfig",
     "Plan",
+    "PlanDecision",
     "QuantileSketch",
+    "QuantizeCodec",
     "Query",
     "QueryResult",
+    "Registration",
+    "SHENZHEN_BBOX",
+    "SLO",
     "SampleResult",
+    "SessionStep",
+    "SparseCodec",
+    "StackedSLO",
     "StratumStats",
     "StratumTable",
+    "StreamSession",
+    "TopKSketchCodec",
+    "UplinkCodec",
     "WindowBatch",
+    "WindowResult",
+    "WindowSpec",
     "accumulator",
     "bootstrap_normals",
     "bounds",
+    "codec",
+    "compact",
     "count_windows",
     "edge_sample",
     "edgesos",
     "estimate",
     "estimators",
+    "feedback",
     "finalize",
     "finalize_signature",
     "fuse",
@@ -111,15 +155,24 @@ __all__ = [
     "lower",
     "make_table",
     "make_table_from_codes",
+    "merge_accs",
+    "merge_accs_panes",
+    "merge_column_stats",
+    "merge_column_stats_panes",
     "merge_stats",
+    "pane_windows",
     "pipeline",
     "query",
     "refined_preagg_bytes",
     "register_accumulator",
+    "resolve_codec",
     "resolve_device",
+    "roundtrip",
     "sample_stats",
     "sampling",
+    "session",
     "sketch_quantile",
     "stratify",
+    "time_windows",
     "windows",
 ]

@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from .estimators import group_index, group_sum, sketch_bin_values, sketch_quantile
+from .transfer import to_device
 
 
 def _gsum(x: torch.Tensor, grp, num_groups: int) -> torch.Tensor:
@@ -66,7 +67,7 @@ def percentile_interval(reps: torch.Tensor, confidence: float) -> tuple[torch.Te
     """(lo, hi) percentile-bootstrap interval over the leading replicate axis
     (linear interpolation between order statistics)."""
     alpha = (1.0 - confidence) / 2.0
-    qs = torch.tensor([alpha, 1.0 - alpha], dtype=torch.float32, device=reps.device)
+    qs = to_device([alpha, 1.0 - alpha], torch.float32, reps.device)
     lo_hi = torch.quantile(reps, qs, dim=0)
     return lo_hi[0], lo_hi[1]
 
@@ -251,7 +252,8 @@ def _rank_slack(n: torch.Tensor, total: torch.Tensor, confidence: float) -> torc
     f = torch.where(total > 0, n / torch.clamp_min(total, 1.0), 1.0)
     log_miss = torch.log(torch.clamp_min(1.0 - f, 1e-30))
     log_conf = torch.log(torch.tensor(1.0 - confidence, dtype=torch.float32))
-    m = torch.ceil(log_conf.to(n.device) / torch.clamp_max(log_miss, -1e-30))
+    log_conf = to_device(float(log_conf), torch.float32, n.device)
+    m = torch.ceil(log_conf / torch.clamp_max(log_miss, -1e-30))
     return torch.minimum(m.clamp_min(0.0), torch.clamp_min(total - n, 0.0))
 
 

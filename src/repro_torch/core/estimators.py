@@ -45,6 +45,27 @@ class StratumStats(NamedTuple):
     mean: torch.Tensor
 
 
+class ColumnStats(NamedTuple):
+    """Mergeable per-stratum accumulator of one value column: the five
+    moments of :class:`StratumStats` (sum/mean/count/var via the Chan et al.
+    merge) plus per-stratum sample extrema (``+inf``/``-inf`` on empty
+    strata, the identities of min/max), so every field merges exactly:
+    additive (n/total/wsum), mean-shift (m2) or lattice (min/max)."""
+
+    n: torch.Tensor
+    total: torch.Tensor
+    wsum: torch.Tensor
+    m2: torch.Tensor
+    mean: torch.Tensor
+    min: torch.Tensor
+    max: torch.Tensor
+
+    @property
+    def base(self) -> StratumStats:
+        """The moment-only view (drop extrema) for the eq 5-10 estimators."""
+        return StratumStats(n=self.n, total=self.total, wsum=self.wsum, m2=self.m2, mean=self.mean)
+
+
 class Estimate(NamedTuple):
     """Global stratified estimate with uncertainty (eqs 5–10)."""
 
@@ -148,6 +169,13 @@ def merge_stats(a: StratumStats, b: StratumStats) -> StratumStats:
     return StratumStats(n=n, total=a.total + b.total, wsum=wsum, m2=m2, mean=_mean_of(n, wsum))
 
 
+def merge_all(stats: Sequence[StratumStats]) -> StratumStats:
+    out = stats[0]
+    for st in stats[1:]:
+        out = merge_stats(out, st)
+    return out
+
+
 def _from_raw2(n, total, wsum, raw2) -> StratumStats:
     """Mean-shift decomposition: M2 = Σ(M2_p + n_p ȳ_p²) − n ȳ²."""
     mean = _mean_of(n, wsum)
@@ -209,10 +237,12 @@ def _zero_last(x: torch.Tensor, fill: float) -> torch.Tensor:
     return torch.where(keep, x, fill)
 
 
-def z_value(confidence: float) -> torch.Tensor:
-    """Upper alpha/2 normal quantile, e.g. 1.96 for 95%."""
+def z_value(confidence: float, device=None) -> torch.Tensor:
+    """Upper alpha/2 normal quantile, e.g. 1.96 for 95%, as an f32 scalar on
+    ``device`` (the CPU when None), written there without a copy."""
     alpha = 1.0 - confidence
-    return torch.special.ndtri(torch.tensor(1.0 - alpha / 2.0, dtype=torch.float32))
+    z = torch.special.ndtri(torch.tensor(1.0 - alpha / 2.0, dtype=torch.float32))
+    return torch.full((), float(z), dtype=torch.float32, device=device)
 
 
 def guarded_s2(
@@ -275,7 +305,7 @@ def estimate(stats: StratumStats, confidence: float = 0.95) -> Estimate:
     var_sum = torch.sum(torch.where(active, N * N * fpc * s2_k / torch.clamp_min(n, 1.0), 0.0))
     var_sum = torch.where(unidentified, torch.inf, var_sum)  # eq 6
     var_mean = var_sum / torch.clamp_min(covered, 1.0) ** 2  # eq 7
-    z = z_value(confidence).to(n.device)
+    z = z_value(confidence, n.device)
     moe = z * torch.sqrt(torch.clamp_min(var_mean, 0.0))  # eq 9
     rel = torch.where(
         torch.abs(mean_hat) > 0, moe / torch.clamp_min(torch.abs(mean_hat), 1e-30), torch.inf
@@ -292,6 +322,28 @@ def estimate(stats: StratumStats, confidence: float = 0.95) -> Estimate:
         n_total=torch.sum(n),
         population=population,
     )
+
+
+def substream_sums(stats_per_substream: Sequence[StratumStats]) -> torch.Tensor:
+    """Equations (1)–(2): per-substream estimated sums t̂_s = Σ_k N_{s,k} ȳ_{s,k}
+    (one edge node's local stats each); the global SUM is their sum."""
+    return torch.stack([torch.sum(st.total * st.mean) for st in stats_per_substream])
+
+
+def per_stratum_means(stats: StratumStats, confidence: float = 0.95):
+    """Per-stratum mean and CI half-width (heatmaps, per-cell queries).
+
+    A stratum is its own group, so no lonely-singleton imputation applies:
+    strata with ``n_k < 2`` report an infinite half-width (fully sampled
+    strata stay exact: fpc == 0)."""
+    n, total = stats.n, stats.total
+    s2_k = torch.where(n > 1, stats.m2 / torch.clamp_min(n - 1.0, 1.0), 0.0)
+    fpc = torch.where(total > 0, 1.0 - n / torch.clamp_min(total, 1.0), 0.0)
+    var_k = fpc * s2_k / torch.clamp_min(n, 1.0)
+    identified = (n > 1) | ((n > 0) & (n >= total))
+    var_k = torch.where(identified, var_k, torch.inf)
+    moe_k = z_value(confidence, n.device) * torch.sqrt(torch.clamp_min(var_k, 0.0))
+    return stats.mean, moe_k
 
 
 # ---------------------------------------------------------------------------
@@ -688,3 +740,72 @@ def accumulator(kind: str) -> Accumulator:
 
 def zero_overflow_accs(accs: dict) -> dict:
     return {k: accumulator(k).zero_overflow(s) for k, s in accs.items()}
+
+
+def accumulate_column(kinds: Sequence[str], values, stratum_idx, mask, num_slots: int,
+                      counts=None) -> dict:
+    """One column's registry states for the requested accumulator kinds."""
+    return {
+        k: accumulator(k).accumulate(values, stratum_idx, mask, num_slots, counts=counts)
+        for k in kinds
+    }
+
+
+def merge_accs(a: dict, b: dict) -> dict:
+    return {k: accumulator(k).merge(a[k], b[k]) for k in a}
+
+
+def stack_trees(trees: Sequence):
+    """Stack like-structured trees of states (dicts, NamedTuples, tensors)
+    along a new leading axis: pane rings, batched emits."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return type(first)(*(stack_trees(list(xs)) for xs in zip(*trees)))
+    return torch.stack(list(trees), 0)
+
+
+def merge_accs_panes(stacked: dict) -> dict:
+    """Vectorized pane merge of one column's stacked states (leading P axis)."""
+    return {k: accumulator(k).merge_panes(st) for k, st in stacked.items()}
+
+
+# -- ColumnStats: moments + extrema of one column in one record ---------------
+
+
+def column_stats(values, stratum_idx, mask, num_slots: int, counts=None,
+                 extrema: bool = True) -> ColumnStats:
+    """Per-stratum moments (:func:`sample_stats`) and extrema of the sampled
+    tuples of one column; ``extrema=False`` fills the extrema with their
+    identities without reducing."""
+    base = sample_stats(values, stratum_idx, mask, num_slots, counts=counts)
+    ext = (EXTREMA.accumulate(values, stratum_idx, mask, num_slots) if extrema
+           else EXTREMA.identity(num_slots, base.n.device))
+    return ColumnStats(*base, min=ext.min, max=ext.max)
+
+
+def merge_column_stats(a: ColumnStats, b: ColumnStats) -> ColumnStats:
+    """Exact pairwise merge: Chan et al. for moments, lattice for extrema."""
+    base = merge_stats(a.base, b.base)
+    return ColumnStats(*base, min=torch.minimum(a.min, b.min), max=torch.maximum(a.max, b.max))
+
+
+def merge_all_columns(stats: Sequence[ColumnStats]) -> ColumnStats:
+    out = stats[0]
+    for st in stats[1:]:
+        out = merge_column_stats(out, st)
+    return out
+
+
+def stack_column_stats(stats: Sequence[ColumnStats]) -> ColumnStats:
+    """Stack accumulators along a new leading pane axis: (P, S+1) fields."""
+    return ColumnStats(*(torch.stack(xs, 0) for xs in zip(*stats)))
+
+
+def merge_column_stats_panes(stacked: ColumnStats) -> ColumnStats:
+    """Vectorized multi-way merge over a leading pane axis: one mean-shift
+    pass (:func:`merge_stats_panes`) and one min/max reduction, the
+    cloud-side pane merge of sliding and hopping windows."""
+    base = merge_stats_panes(stacked.base)
+    return ColumnStats(*base, min=torch.amin(stacked.min, 0), max=torch.amax(stacked.max, 0))

@@ -1,4 +1,4 @@
-"""EdgeApproxGeo query engine (paper Algorithm 2), preagg mode.
+"""EdgeApproxGeo query engine (paper Algorithm 2).
 
 A query is lowered (``query.lower``) into the two halves of the edge-cloud
 split:
@@ -23,6 +23,22 @@ Edge tier  = stratify + EdgeSOS-sample the local window, then reduce every
 Cloud tier = finalize each aggregate into an ``AggEstimate`` with error
              bounds, optionally grouped by stratum / neighborhood.
 
+Two transmission modes (paper §3.6.4), chosen per query:
+  * ``preagg`` — the edge ships per-stratum accumulator states, O(S ·
+    columns) floats; with ``PipelineConfig.uplink_codec`` set they cross
+    through that wire codec (:mod:`.codec`) and the cloud finalizes the
+    decoded states;
+  * ``raw`` — the edge compacts its kept tuples into a static
+    ``raw_capacity`` buffer (:func:`~.sampling.compact`) and the cloud
+    accumulates the buffer on the same backend; kept tuples beyond the
+    buffer are counted in ``n_truncated``.
+
+Entry points: ``execute`` (one query, one window); the edge and cloud
+halves a :class:`~.session.StreamSession` composes (``_pass_fn``,
+``_refined_pass_fn``, ``finalize_fn``, ``batched_finalize_fn``, cached on
+the pipeline and counted in ``cache_stats``); the legacy
+``process_window`` and ``run_stream`` shims.
+
 Randomness: one ``(N,)`` uniform vector decides the whole sample (the SRS
 rank draw and the Bernoulli draw read the same vector, as in the reference
 package, where both read ``jax.random.uniform`` from one key).
@@ -34,16 +50,19 @@ generator (``query.bootstrap_normals``), or from ``normals=``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-from . import estimators, sampling
+from . import codec as wirecodec
+from . import estimators, feedback, sampling
 from . import query as aqp
-from .query import Plan, Query, QueryResult
+from .estimators import Estimate, StratumStats
+from .query import AggSpec, Plan, Query, QueryResult
 from .sampling import SampleResult
 from .stratify import StratumTable, resolve_device
+from .transfer import to_device
 from .windows import WindowBatch
 
 BACKENDS = ("segment", "pallas", "fused")
@@ -64,18 +83,25 @@ class PipelineConfig:
     ``"fused"`` (the edge megakernel).  ``staging_dtype`` (fused backend
     only) is the dtype value columns are staged in on their way into the
     megakernel: ``"bfloat16"`` halves their traffic; accumulation stays f32.
-    Raw mode and uplink codecs are not part of this package yet and raise
-    ``NotImplementedError``.
+    ``raw_capacity`` is the static per-node tuple buffer of raw mode (the
+    window size when None).  ``uplink_codec`` selects the preagg wire
+    format (:mod:`.codec`): None ships the dense analytic payload;
+    ``"sparse"``, ``"topk<k>"``, ``"quantize16"``, ``"quantize8"`` or
+    ``"delta"`` route every preagg frame through that codec, estimates
+    finalize from the decoded states, and ``comm_bytes`` reports the
+    measured encoded bytes.  Raw-mode queries are untouched by the codec.
     """
 
     method: str = "srs"  # srs | bernoulli | neyman
-    mode: str = "preagg"
+    mode: str = "preagg"  # preagg | raw (legacy-API default)
     confidence: float = 0.95
+    raw_capacity: int | None = None
     backend: str = "segment"
     staging_dtype: str = "float32"
     uplink_codec: str | None = None
 
     def __post_init__(self):
+        wirecodec.resolve_codec(self.uplink_codec)  # fail fast on bad specs
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}; got {self.backend!r}")
         if self.staging_dtype not in STAGING_DTYPES:
@@ -87,12 +113,19 @@ class PipelineConfig:
                 "staging_dtype is a fused-backend knob: reduced-precision staging "
                 "requires backend='fused' (accumulation stays f32 on every backend)"
             )
-        if self.mode == "raw":
-            raise NotImplementedError("mode='raw' arrives with the raw-mode slice of the port")
-        if self.mode != "preagg":
+        if self.mode not in ("preagg", "raw"):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.uplink_codec is not None:
-            raise NotImplementedError("uplink codecs arrive with the codec slice of the port")
+
+
+class WindowResult(NamedTuple):
+    """Output of the legacy single-estimate API (``process_window``)."""
+
+    estimate: Estimate
+    stats: StratumStats
+    n_sampled: torch.Tensor
+    n_valid: torch.Tensor
+    n_overflow: torch.Tensor  # tuples outside the region of interest
+    comm_bytes: torch.Tensor  # analytic edge->cloud payload of this mode
 
 
 def edge_sample(
@@ -230,16 +263,16 @@ def _add_to_last(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 def _edge_program(plan: Plan, table: StratumTable, cfg: PipelineConfig, u, lat, lon, cols,
                   valid, fraction):
-    """The lowered edge half of a preagg plan on one edge node.
+    """The lowered edge half of a plan on one edge node.
 
     Returns ``(stats, n_sampled, n_valid, n_overflow, n_truncated,
     comm_bytes)`` where ``stats`` maps column -> ``{kind: state}``."""
     q = plan.query
+    dev = lat.device
     ok = valid & aqp.roi_mask(plan, table, lat, lon)
-    n_truncated = torch.zeros((), dtype=torch.int32, device=lat.device)
-    comm = torch.tensor(aqp.preagg_bytes(plan, table.num_slots), dtype=torch.int32).to(lat.device)
     if (
         cfg.backend == "fused"
+        and q.mode != "raw"
         and _plan_fusable(plan)
         and q.method in ("srs", "bernoulli")
         # latlon-mode overflow residuals need a scalar threshold; a
@@ -249,12 +282,35 @@ def _edge_program(plan: Plan, table: StratumTable, cfg: PipelineConfig, u, lat, 
         stats, n_sampled, n_valid, n_overflow = _fused_member_program(
             plan, table, cfg, u, lat, lon, cols, ok, valid, fraction
         )
-        return stats, n_sampled, n_valid, n_overflow, n_truncated, comm
+        comm = _int32(aqp.preagg_bytes(plan, table.num_slots), dev)
+        return stats, n_sampled, n_valid, n_overflow, _int32(0, dev), comm
     sidx, sample = edge_sample(u, table, lat, lon, ok, fraction, q.method, backend=cfg.backend)
+    if q.mode == "raw":
+        n = lat.shape[0]
+        cap = cfg.raw_capacity or n
+        v_ok, v_sidx, *packed = sampling.compact(
+            sample.mask, cap, sidx, *[cols[c] for c in plan.columns]
+        )
+        # kept tuples beyond the static buffer are shed by compact();
+        # account for them so the result surfaces the loss
+        n_sampled = torch.sum(sample.mask, dtype=torch.int32)
+        n_truncated = torch.clamp_min(n_sampled - min(cap, n), 0)
+        gathered = dict(zip(plan.columns, packed))
+        stats = _accumulate_columns(
+            plan, cfg, gathered, v_sidx, v_ok, table.num_slots, sample.counts
+        )
+        _, _, n_valid, n_overflow = _consolidate(stats, n_sampled, ok, valid, sample.counts)
+        comm = _int32(aqp.raw_bytes(plan, cap), dev)
+        return stats, n_sampled, n_valid, n_overflow, n_truncated, comm
     stats, n_sampled, n_valid, n_overflow = _member_reduce(
         plan, table, cfg, cols, sidx, sample.mask, ok, valid, sample.counts
     )
-    return stats, n_sampled, n_valid, n_overflow, n_truncated, comm
+    comm = _int32(aqp.preagg_bytes(plan, table.num_slots), dev)
+    return stats, n_sampled, n_valid, n_overflow, _int32(0, dev), comm
+
+
+def _int32(x: int, device) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.int32, device=device)
 
 
 def _member_reduce(plan: Plan, table: StratumTable, cfg: PipelineConfig, cols, sidx, mask, ok,
@@ -299,7 +355,7 @@ def _fused_member_program(plan: Plan, table: StratumTable, cfg: PipelineConfig, 
     ext_idx, sk_idx = _kernel_layout(plan.columns, kinds_map)
     vals = _stack_staged(cfg, plan.columns, cols)
     if q.method == "bernoulli":
-        frac = torch.as_tensor(fraction, dtype=torch.float32).to(u.device)
+        frac = to_device(fraction, torch.float32, u.device)
         thr = frac.expand(1, slots).contiguous()
         res = edge_megakernel(
             vals, ok[None], u[None], thr, slots,
@@ -353,7 +409,7 @@ def _fused_edge_program(fused: aqp.FusedPlan, table: StratumTable, cfg: Pipeline
             f"refined fused pass supports srs|bernoulli members, not {q.method!r}; neyman "
             "allocation needs per-stratum stddev threading"
         )
-    fractions = torch.as_tensor(fractions, dtype=torch.float32).to(u.device)
+    fractions = to_device(fractions, torch.float32, u.device)
     if cfg.backend == "fused" and all(_plan_fusable(p) for p in fused.members):
         return _fused_refined_mega(fused, table, cfg, u, lat, lon, cols, valid, fractions)
     slots = table.num_slots
@@ -453,29 +509,144 @@ def _fused_refined_mega(fused: aqp.FusedPlan, table: StratumTable, cfg: Pipeline
 
 
 class EdgeCloudPipeline:
-    """Single-node query engine on one device (CUDA unless named)."""
+    """Single-node query engine on one device (CUDA unless named).
+
+    Besides ``execute`` it holds the edge and cloud halves a
+    :class:`~.session.StreamSession` runs per pane, as programs cached by
+    plan (edge passes) and by finalize signature (emits), so sessions over
+    one pipeline share them.  ``cache_stats`` counts, per family, the
+    programs built (misses) and reused (hits)."""
 
     def __init__(self, table: StratumTable, config: PipelineConfig = PipelineConfig(),
                  device=None):
         self.device = resolve_device(device)
         self.table = table.to(self.device)
         self.config = config
+        # the resolved wire codec spec (None: dense analytic payload); a
+        # stateful codec (delta) hands out per-stream instances via
+        # for_stream(), so this is never a live stream state
+        self.codec_spec = wirecodec.resolve_codec(config.uplink_codec)
         self._plans: dict[Query, Plan] = {}
+        self._passes: dict[Plan, callable] = {}
+        self._refined_passes: dict[tuple, callable] = {}
+        self._finalizers: dict[tuple, callable] = {}
+        self.cache_stats: dict[str, dict[str, int]] = {
+            f: {"hits": 0, "misses": 0}
+            for f in ("plan", "pass", "refined_pass", "finalize")
+        }
+
+    def _cache_event(self, family: str, hit: bool) -> None:
+        self.cache_stats[family]["hits" if hit else "misses"] += 1
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct programs built across the program families (``plan``
+        lowerings excluded).  The churn contract: this must not move while
+        tenants register and unregister queries of shapes already seen."""
+        return sum(v["misses"] for f, v in self.cache_stats.items() if f != "plan")
+
+    def cache_snapshot(self) -> dict:
+        """Copy of the per-family hit/miss counters plus ``compile_count``."""
+        return {
+            "families": {f: dict(v) for f, v in self.cache_stats.items()},
+            "compile_count": self.compile_count,
+        }
 
     def plan(self, query: Query) -> Plan:
         """Lower (and cache) a query against this pipeline's stratum table."""
         p = self._plans.get(query)
+        self._cache_event("plan", p is not None)
         if p is None:
-            if query.mode != "preagg":
-                raise NotImplementedError(
-                    "mode='raw' arrives with the raw-mode slice of the port"
-                )
             p = aqp.lower(query, self.table)
             self._plans[query] = p
         return p
 
-    def _window_arrays(self, window, plan: Plan):
-        """Host-side: split a WindowBatch / mapping into device tensors."""
+    # -- programs (edge passes and cloud emits) -----------------------------
+
+    def _pass_fn(self, plan: Plan):
+        """The edge pass of a lowered plan: ``(u, lat, lon, cols, valid,
+        fraction) -> (stats, n_sampled, n_valid, n_overflow, n_truncated,
+        comm_bytes)``, stratify + EdgeSOS + accumulate without finalize.
+        ``execute`` runs it before finalize; a session runs it once per
+        fusion group and pane."""
+        fn = self._passes.get(plan)
+        self._cache_event("pass", fn is not None)
+        if fn is None:
+            table, cfg = self.table, self.config
+
+            def fn(u, lat, lon, cols, valid, fraction):
+                return _edge_program(plan, table, cfg, u, lat, lon, cols, valid, fraction)
+
+            self._passes[plan] = fn
+        return fn
+
+    def _refined_pass_fn(self, fused: aqp.FusedPlan):
+        """The refined fused pass of a group: ``(u, lat, lon, cols, valid,
+        fractions) -> (members_out, comm)`` (see :func:`_fused_edge_program`),
+        fractions a per-member vector, so drifting fractions reuse it."""
+        fn = self._refined_passes.get(fused.members)
+        self._cache_event("refined_pass", fn is not None)
+        if fn is None:
+            table, cfg = self.table, self.config
+
+            def fn(u, lat, lon, cols, valid, fractions):
+                return _fused_edge_program(fused, table, cfg, u, lat, lon, cols, valid, fractions)
+
+            self._refined_passes[fused.members] = fn
+        return fn
+
+    def _finalize_body(self, plan: Plan, num_panes: int):
+        """``(stats, normals) -> (estimates, merged)`` for one query's
+        window: merge ``num_panes`` stacked pane states (pass-through for
+        one pane, so a one-pane window finalizes ``execute``'s bits) and
+        finalize with the given bootstrap draws."""
+        table = self.table
+
+        def run(stats, normals):
+            if num_panes > 1:
+                stats = {c: estimators.merge_accs_panes(stats[c]) for c in plan.columns}
+            return aqp.finalize(plan, table, stats, normals=normals), stats
+
+        return run
+
+    def finalize_fn(self, plan: Plan, num_panes: int):
+        """The cloud-side emit of one registration, cached by finalize
+        signature: queries that differ only in sampling method, mode or ROI
+        share one program (finalize never reads those)."""
+        key = ("single", aqp.finalize_signature(plan), num_panes)
+        fn = self._finalizers.get(key)
+        self._cache_event("finalize", fn is not None)
+        if fn is None:
+            fn = self._finalizers[key] = self._finalize_body(plan, num_panes)
+        return fn
+
+    def batched_finalize_fn(self, plan: Plan, num_panes: int, batch: int):
+        """The emit of ``batch`` queries sharing a finalize signature, with
+        one set of bootstrap draws for all: ``(member_stats, normals) ->
+        (estimates, stats)`` with a leading batch axis of width ``batch``
+        (sessions pad to a power of two by repeating row 0).  Each row runs
+        the singleton finalize, so it carries exactly the singleton's bits;
+        a stacked (vectorized) finalize is not part of this package yet."""
+        key = ("batched", aqp.finalize_signature(plan), num_panes, batch)
+        fn = self._finalizers.get(key)
+        self._cache_event("finalize", fn is not None)
+        if fn is None:
+            body = self._finalize_body(plan, num_panes)
+
+            def fn(member_stats, normals):
+                rows = [body(st, normals) for st in member_stats]
+                rows += [rows[0]] * (batch - len(rows))  # padding repeats row 0
+                stack = estimators.stack_trees
+                return stack([r[0] for r in rows]), stack([r[1] for r in rows])
+
+            self._finalizers[key] = fn
+        return fn
+
+    # -- inputs --------------------------------------------------------------
+
+    def _window_arrays(self, window, columns):
+        """Host-side: split a WindowBatch / mapping into device tensors of
+        ``lat``, ``lon``, ``valid`` and the named value ``columns``."""
         if isinstance(window, WindowBatch):
             cols = window.columns
             lat, lon, valid = window.lat, window.lon, window.valid
@@ -483,7 +654,7 @@ class EdgeCloudPipeline:
             cols = {k: v for k, v in window.items() if k not in ("lat", "lon", "valid")}
             lat, lon = window["lat"], window["lon"]
             valid = window.get("valid")
-        missing = [c for c in plan.columns if c not in cols]
+        missing = [c for c in columns if c not in cols]
         if missing:
             raise KeyError(f"window has no column(s) {missing}; available: {sorted(cols)}")
         lat = self._tensor(lat, torch.float32)
@@ -492,14 +663,11 @@ class EdgeCloudPipeline:
             valid = torch.ones(lat.shape, dtype=torch.bool, device=self.device)
         else:
             valid = self._tensor(valid, torch.bool)
-        cols = {c: self._tensor(cols[c], torch.float32) for c in plan.columns}
+        cols = {c: self._tensor(cols[c], torch.float32) for c in columns}
         return lat, lon, cols, valid
 
     def _tensor(self, x, dtype) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=dtype).contiguous()
-        # np.array copies, so read-only host buffers convert without a warning
-        return torch.as_tensor(np.array(x), device=self.device).to(dtype).contiguous()
+        return to_device(x, dtype, self.device).contiguous()
 
     def _uniforms(self, generator, n: int, uniforms) -> torch.Tensor:
         if uniforms is None:
@@ -508,6 +676,8 @@ class EdgeCloudPipeline:
         if u.shape != (n,):
             raise ValueError(f"uniforms must have shape ({n},); got {tuple(u.shape)}")
         return u
+
+    # -- declarative query API -----------------------------------------------
 
     def execute(self, query: Query, generator: torch.Generator | None, window, fraction=1.0,
                 *, uniforms=None, normals=None) -> QueryResult:
@@ -520,13 +690,21 @@ class EdgeCloudPipeline:
         default one) unless ``uniforms`` supplies them; the bootstrap's
         normals then come from the same generator, in the order of
         :func:`~.query.bootstrap_normals`, unless ``normals`` supplies them.
+
+        With an uplink codec, a preagg query's consolidated states cross
+        the codec once (a fresh stream, so a delta codec sends a keyframe)
+        and finalize from the decoded states with the same draws, so a
+        lossless codec gives the dense estimates bit for bit;
+        ``comm_bytes`` is then the frame's measured bytes (a host int).
         """
         plan = self.plan(query)
-        lat, lon, cols, valid = self._window_arrays(window, plan)
+        lat, lon, cols, valid = self._window_arrays(window, plan.columns)
         u = self._uniforms(generator, lat.shape[0], uniforms)
-        stats, n_sampled, n_valid, n_overflow, n_truncated, comm = _edge_program(
-            plan, self.table, self.config, u, lat, lon, cols, valid, fraction
+        stats, n_sampled, n_valid, n_overflow, n_truncated, comm = self._pass_fn(plan)(
+            u, lat, lon, cols, valid, fraction
         )
+        if self.codec_spec is not None and query.mode == "preagg":
+            stats, comm = wirecodec.roundtrip(self.codec_spec.for_stream(), stats)
         return QueryResult(
             estimates=aqp.finalize(plan, self.table, stats, generator, normals=normals),
             stats=stats,
@@ -545,7 +723,75 @@ class EdgeCloudPipeline:
         n_sampled, n_valid, n_overflow)`` for member ``m`` at
         ``fractions[m]`` (see :func:`_fused_edge_program`).  Each member's
         states finalize with ``query.finalize(fused.members[m], ...)``."""
-        lat, lon, cols, valid = self._window_arrays(window, fused.shared)
+        lat, lon, cols, valid = self._window_arrays(window, fused.shared.columns)
         u = self._uniforms(generator, lat.shape[0], uniforms)
-        return _fused_edge_program(fused, self.table, self.config, u, lat, lon, cols, valid,
-                                   fractions)
+        return self._refined_pass_fn(fused)(u, lat, lon, cols, valid, fractions)
+
+    # -- legacy single-estimate API (shim over the canonical query) ---------
+
+    def _canonical_query(self) -> Query:
+        """The fixed query the pre-query API answered: SUM/MEAN(value)."""
+        return Query(
+            aggs=(AggSpec("sum", "value"), AggSpec("mean", "value")),
+            confidence=self.config.confidence,
+            method=self.config.method,
+        )
+
+    def process_window(self, generator: torch.Generator | None, lat, lon, value, valid,
+                       fraction, *, uniforms=None) -> WindowResult:
+        """Legacy single-estimate API: the canonical query's edge program
+        and the eq 5-10 estimate of ``value``."""
+        plan = self.plan(self._canonical_query())
+        window = {"lat": lat, "lon": lon, "value": value, "valid": valid}
+        lat, lon, cols, valid = self._window_arrays(window, plan.columns)
+        u = self._uniforms(generator, lat.shape[0], uniforms)
+        stats, n_sampled, n_valid, n_overflow, _trunc, comm = self._pass_fn(plan)(
+            u, lat, lon, cols, valid, fraction
+        )
+        base = stats["value"]["moments"]
+        return WindowResult(
+            estimate=estimators.estimate(estimators.zero_overflow_stats(base),
+                                         self.config.confidence),
+            stats=base,
+            n_sampled=n_sampled,
+            n_valid=n_valid,
+            n_overflow=n_overflow,
+            comm_bytes=comm,
+        )
+
+    def run_stream(self, windows, slo: feedback.SLO | None = None, initial_fraction: float = 0.8,
+                   generator: torch.Generator | None = None, sharded: bool = False,
+                   query: Query | None = None):
+        """Process a stream of WindowBatch under the QoS feedback loop.
+
+        With ``query`` set this is a thin shim over a single-query
+        :class:`~.session.StreamSession` (one registered tumbling one-pane
+        query, stepped with ``generator``); the controller tracks the
+        query's first error-bounded aggregate.  Without it, the legacy loop
+        over ``process_window`` with one host readback of the fractions at
+        the end of the stream.  Returns ``(history, controller_state)``."""
+        if sharded:
+            raise NotImplementedError(
+                "sharded streams arrive with the sharded-path slice of the port"
+            )
+        slo = slo or feedback.SLO()
+        if query is not None:
+            from .session import StreamSession  # session sits above pipeline
+
+            sess = StreamSession(self, initial_fraction=initial_fraction)
+            reg = sess.register(query, slo=slo)
+            history = []
+            for w in windows:
+                step = sess.step(generator, w)
+                history.append((step.results[reg.qid], step.fractions[reg.qid]))
+            return history, sess.controller_state(reg)
+        state = feedback.init_state(initial_fraction, self.device)
+        history = []
+        for w in windows:
+            res = self.process_window(generator, w.lat, w.lon, w.value, w.valid, state.fraction)
+            state = feedback.update(state, res.estimate.relative_error, res.n_valid, slo)
+            history.append((res, state.fraction))
+        # one host readback at the stream boundary instead of one per window
+        fracs = torch.stack([f for _, f in history]).cpu().tolist() if history else []
+        return [(res, f) for (res, _), f in zip(history, fracs)], state
+

@@ -392,7 +392,8 @@ class QueryResult(NamedTuple):
     n_valid: torch.Tensor
     n_overflow: torch.Tensor
     n_truncated: torch.Tensor  # raw-mode kept tuples shed by the static buffer
-    comm_bytes: torch.Tensor  # analytic edge->cloud payload of the plan's mode
+    comm_bytes: torch.Tensor | int  # analytic payload of the plan's mode; with an
+    # uplink codec the frame's measured encoded bytes (a host int)
     n_dropped: int = 0  # tuples the window shed upstream (bounded buffers)
 
 
@@ -409,7 +410,7 @@ def _group_index(plan: Plan, table: StratumTable) -> Groups:
         grp = torch.arange(s, dtype=torch.int32, device=table.device)
     else:
         grp = table.neighborhood[:s]
-    tail = torch.tensor([plan.num_groups], dtype=torch.int32, device=table.device)
+    tail = torch.full((1,), plan.num_groups, dtype=torch.int32, device=table.device)
     return estimators.groups_of(torch.cat([grp, tail]), plan.num_groups)
 
 
@@ -449,40 +450,46 @@ def _bounded_estimate(value, lo, hi, n_g, pop_g) -> AggEstimate:
     )
 
 
-def bootstrap_normals(plan: Plan, table: StratumTable, stats: dict[str, dict],
-                      generator: torch.Generator | None = None) -> dict:
-    """The bootstrap's standard-normal draws for every aggregate that takes
-    them, in the fixed order :func:`finalize` consumes them.
-
-    Returns ``{agg_index: {name: tensor}}`` on the table's device.  For each
-    aggregate in ``plan.query.aggs`` order, with ``R`` replicates, ``S+1``
-    slots and ``W`` = ``(SKETCH_NUM_BINS,)``, or ``(num_groups,
-    SKETCH_NUM_BINS)`` when grouped:
+def normals_layout(plan: Plan, table: StratumTable, stats: dict[str, dict]) -> tuple:
+    """The shapes of the bootstrap's standard-normal draws, in the fixed
+    order :func:`finalize` consumes them: ``((agg_index, name, shape),
+    ...)``.  For each aggregate in ``plan.query.aggs`` order, with ``R``
+    replicates, ``S+1`` slots and ``W`` = ``(SKETCH_NUM_BINS,)``, or
+    ``(num_groups, SKETCH_NUM_BINS)`` when grouped:
 
       * ``var``: ``"mean"`` (R, S+1), then ``"s2"`` (R, S+1), then, when the
         column's states carry a sketch, ``"sketch"`` (R, *W);
       * ``p<q>``: ``"sketch"`` (R, *W).
 
-    Each is one ``torch.randn`` call on ``generator`` in exactly this order
-    (no draws when ``bootstrap_replicates`` is 0)."""
+    Empty when ``bootstrap_replicates`` is 0.  Two plans with one layout
+    take the same draws in a session step (as they take the same key in
+    the reference package)."""
     q = plan.query
     r = q.bootstrap_replicates
     if r <= 0:
-        return {}
-    dev = table.device
+        return ()
     wb = (plan.num_groups, SKETCH_NUM_BINS) if q.group_by is not None else (SKETCH_NUM_BINS,)
-
-    def draw(*shape):
-        return torch.randn(shape, generator=generator, device=dev)
-
-    out: dict[int, dict[str, torch.Tensor]] = {}
+    out = []
     for i, spec in enumerate(q.aggs):
         if spec.kind == "var":
-            out[i] = {"mean": draw(r, table.num_slots), "s2": draw(r, table.num_slots)}
+            out += [(i, "mean", (r, table.num_slots)), (i, "s2", (r, table.num_slots))]
             if "sketch" in stats[spec.column]:
-                out[i]["sketch"] = draw(r, *wb)
+                out.append((i, "sketch", (r, *wb)))
         elif quantile_of(spec.kind) is not None:
-            out[i] = {"sketch": draw(r, *wb)}
+            out.append((i, "sketch", (r, *wb)))
+    return tuple(out)
+
+
+def bootstrap_normals(plan: Plan, table: StratumTable, stats: dict[str, dict],
+                      generator: torch.Generator | None = None) -> dict:
+    """The bootstrap's standard-normal draws for every aggregate that takes
+    them, as ``{agg_index: {name: tensor}}`` on the table's device: one
+    ``torch.randn`` call on ``generator`` per entry of
+    :func:`normals_layout`, in its order (no draws when
+    ``bootstrap_replicates`` is 0)."""
+    out: dict[int, dict[str, torch.Tensor]] = {}
+    for i, name, shape in normals_layout(plan, table, stats):
+        out.setdefault(i, {})[name] = torch.randn(shape, generator=generator, device=table.device)
     return out
 
 
@@ -503,7 +510,7 @@ def finalize(plan: Plan, table: StratumTable, stats: dict[str, dict],
     q = plan.query
     grouped = q.group_by is not None
     num = plan.num_groups
-    z = z_value(q.confidence).to(table.device)
+    z = z_value(q.confidence, table.device)
     grp = _group_index(plan, table) if grouped else None
     replicates = q.bootstrap_replicates
     if normals is None:
@@ -673,3 +680,17 @@ def refined_preagg_bytes(fused: FusedPlan, num_slots: int) -> int:
         for _c, kinds in p.column_kinds:
             vectors += sum(estimators.accumulator(k).payload_vectors() for k in kinds)
     return 4 * num_slots * vectors
+
+
+def raw_bytes(plan: Plan, capacity: int) -> int:
+    """Analytic per-node payload of raw mode: stratum id (4B) + validity
+    (1B) + one f32 per referenced column, per buffer slot."""
+    return capacity * (5 + 4 * len(plan.columns))
+
+
+def downstream_tuple_bytes(plan: Plan) -> int:
+    """Bytes one kept tuple of this plan costs any downstream consumer
+    (stratum id + validity + the referenced columns: the raw-mode tuple
+    layout).  Scales a member's own sample size into the session's
+    downstream-volume accounting."""
+    return 5 + 4 * len(plan.columns)

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from .transfer import to_device
+
 
 class SampleResult(NamedTuple):
     """Fixed-shape stratified sample.
@@ -53,7 +55,7 @@ def stratum_counts(stratum_idx: torch.Tensor, num_slots: int) -> torch.Tensor:
 
 def _fraction(fraction, device) -> torch.Tensor:
     """A scalar or per-stratum fraction as an f32 tensor on ``device``."""
-    return torch.as_tensor(fraction, dtype=torch.float32, device=device)
+    return to_device(fraction, torch.float32, device)
 
 
 def allocate_proportional(counts: torch.Tensor, fraction) -> torch.Tensor:
@@ -176,3 +178,32 @@ def edgesos(
     else:
         raise ValueError(f"unknown method {method!r}")
     return srs_sample(u, stratum_idx, num_slots, n_k, counts)
+
+
+def compact(mask: torch.Tensor, max_out: int, *arrays: torch.Tensor):
+    """Gather kept tuples to the front of a padded ``(max_out, ...)`` buffer.
+
+    The paper's "raw sampled data transmission" mode with static shapes:
+    kept tuples first, in their original relative order, padding after
+    (zeros, so a padding row's stratum index is 0, behind ``valid=False``).
+    Returns ``(valid, gathered...)`` where ``valid`` is a (max_out,) bool
+    mask.  The shapes never depend on the data, so nothing waits on the
+    device."""
+    n = mask.shape[0]
+    take = min(max_out, n)
+    # a stable sort of the dropped flag (uint8: one sort path on every
+    # device) puts kept tuples first in their original order
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    kept = torch.sum(mask, dtype=torch.int32)
+    idx = order[:take]
+    valid = torch.arange(max_out, dtype=torch.int32, device=mask.device) < torch.clamp_max(kept, take)
+
+    def gather(a):
+        g = a[idx]
+        if max_out > n:  # buffer larger than window: pad the tail
+            g = torch.cat([g, torch.zeros((max_out - n,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                          device=a.device)])
+        keep = valid.reshape((max_out,) + (1,) * (a.dim() - 1))
+        return torch.where(keep, g, torch.zeros_like(g))
+
+    return (valid,) + tuple(gather(a) for a in arrays)

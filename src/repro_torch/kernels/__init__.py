@@ -12,6 +12,10 @@ kernel:
                 threshold and emits pop/keep/extrema/sketch rows with
                 integer atomics and the moment sums deterministically,
                 behind ``PipelineConfig(backend="fused")``
+  stratified_stats/  per-slot (count, Σy, Σy²) of one masked column (f32 or
+                bf16 values, bool or float mask, out-of-range slots dropped),
+                deterministic like edge_reduce; the public op
+                ``stratified_stats``, on no path of the engine
   flash_attention/  causal attention forward with an online softmax, GQA
                 read in place; every layer of the LM prefill
 
@@ -25,7 +29,7 @@ sums in :mod:`.segments`.
 """
 
 from . import (build, edge_megakernel, edge_reduce, flash_attention, geohash, sample_mask,
-               segments, tiling)
+               segments, stratified_stats, tiling)
 
 __all__ = ["build", "edge_megakernel", "edge_reduce", "flash_attention", "geohash",
-           "sample_mask", "segments", "tiling"]
+           "sample_mask", "segments", "stratified_stats", "tiling"]

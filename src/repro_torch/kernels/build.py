@@ -25,7 +25,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel", "flash_attention")
+KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel", "stratified_stats",
+           "flash_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -59,6 +60,9 @@ _SIGNATURES = {
             _P, _P, _P, _I, _I, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _L,
             _I, _I, _P,
         ],
+    },
+    "stratified_stats": {
+        "stratified_stats_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [

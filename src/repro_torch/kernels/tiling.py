@@ -4,8 +4,9 @@ The TPU package tiles points and stratum slots into large VMEM blocks for a
 sequential grid; none of that carries over.  On Hopper the edge kernels are
 memory-bound streams, so a block is a multiple of the 32-thread warp and
 the grid is either one thread per element (capped, with a grid-stride loop)
-or, for the deterministic moment sums, one warp per chunk of a segment's
-sorted run.  Flash attention tiles queries and keys in shared memory
+or, for the deterministic moment sums (edge_reduce, stratified_stats, the
+megakernel's sums), one warp per chunk of a segment's sorted run, where the
+TPU tiled one-hot (512, 512) blocks.  Flash attention tiles queries and keys in shared memory
 (``FLASH_BLOCK``).
 """
 
@@ -17,6 +18,7 @@ THREADS: dict[str, int] = {
     "sample_mask": 512,
     "edge_reduce": 256,
     "edge_megakernel": 256,
+    "stratified_stats": 256,
 }
 
 # grid-stride kernels launch at most this many blocks per SM; sample_mask
@@ -32,7 +34,7 @@ BLOCKS_PER_SM: dict[str, int] = {
 
 # sorted entries one warp reduces before handing a partial row to the
 # per-segment finish pass (bounds the work of the heaviest segment's warps);
-# edge_reduce and the megakernel's moment sums share it
+# edge_reduce, stratified_stats and the megakernel's moment sums share it
 SEGMENT_CHUNK = 1024
 
 # flash attention: (query rows, keys) of a block's tile, where the TPU used

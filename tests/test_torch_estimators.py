@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import bounds as jbounds
@@ -248,3 +249,59 @@ def test_payload_rows_and_single_process_psum(kind, tmp_path):
     finally:
         dist.destroy_process_group()
     _close(summed, state, rtol=RTOL, atol=1e-2)
+
+
+# -- column stats, pane merges, per-stratum views ------------------------------
+
+
+def _panes(p=4, s=60):
+    """P panes of one column's accumulated states in both packages."""
+    out_j, out_t = [], []
+    for seed in range(p):
+        sidx, values, mask = _window(n=3000, s=s, seed=10 + seed)
+        kinds = ("moments", "extrema", "sketch")
+        out_j.append(jest.accumulate_column(kinds, jnp.asarray(values), jnp.asarray(sidx),
+                                            jnp.asarray(mask), s))
+        out_t.append(t_est.accumulate_column(kinds, *_t(values, sidx, mask), s))
+    return out_j, out_t
+
+
+def test_merge_accs_panes_matches_jax_and_pairwise_merges():
+    jp, tp = _panes()
+    got = t_est.merge_accs_panes(t_est.stack_trees(tp))
+    want = jest.merge_accs_panes(jax.tree.map(lambda *x: jnp.stack(x), *jp))
+    _close(got["moments"], want["moments"], rtol=RTOL, atol=1e-3)
+    _close(got["extrema"], want["extrema"], rtol=0, atol=0)
+    assert np.array_equal(_np(got["sketch"].bins), np.asarray(want["sketch"].bins))
+    folded = tp[0]
+    for p in tp[1:]:
+        folded = t_est.merge_accs(folded, p)
+    _close(folded["moments"], got["moments"], rtol=RTOL, atol=1e-3)
+
+
+def test_column_stats_merges_match_jax():
+    cols_j, cols_t = [], []
+    for seed in range(3):
+        sidx, values, mask = _window(n=2500, s=40, seed=30 + seed)
+        cols_j.append(jest.column_stats(jnp.asarray(values), jnp.asarray(sidx), jnp.asarray(mask),
+                                        40, extrema=seed != 2))
+        cols_t.append(t_est.column_stats(*_t(values, sidx, mask), 40, extrema=seed != 2))
+    for g, w in zip(cols_t, cols_j):
+        _close(g, w, rtol=RTOL, atol=1e-3)
+    _close(t_est.merge_column_stats(*cols_t[:2]), jest.merge_column_stats(*cols_j[:2]),
+           rtol=RTOL, atol=1e-3)
+    _close(t_est.merge_all_columns(cols_t), jest.merge_all_columns(cols_j), rtol=RTOL, atol=1e-3)
+    _close(t_est.merge_column_stats_panes(t_est.stack_column_stats(cols_t)),
+           jest.merge_column_stats_panes(jest.stack_column_stats(cols_j)), rtol=RTOL, atol=1e-3)
+    assert cols_t[0].base == t_est.StratumStats(*cols_t[0][:5])
+
+
+def test_per_stratum_means_and_substream_sums_match_jax():
+    jp, tp = _panes(p=3)
+    jm = [p["moments"] for p in jp]
+    tm = [p["moments"] for p in tp]
+    for g, w in zip(t_est.per_stratum_means(tm[0], 0.9), jest.per_stratum_means(jm[0], 0.9)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(_np(t_est.substream_sums(tm)), np.asarray(jest.substream_sums(jm)),
+                               rtol=RTOL)
+    _close(t_est.merge_all(tm), jest.merge_all(jm), rtol=RTOL, atol=1e-3)

@@ -10,6 +10,10 @@ exactly and sums within the reference's kernel-test tolerance
 (``tests/test_kernels.py``: rtol=2e-6, atol=1e-3), and every kernel gives the
 same bits on a second run.  The fused backend keeps the pallas backend's
 sample on the card, and the segment backend gives the same bits twice.  The
+stratified_stats kernel is held against its plain version like
+edge_reduce, over f32 and bf16 values, bool and float masks and indices
+out of range, and a session step on the card equals ``execute`` bit for
+bit and the CPU's session within tolerance.  The
 flash-attention kernel is held against its plain version (the model's
 chunked attention) with the reference kernel test's tolerances (2e-5 f32,
 2e-2 bf16), and the dense decoder's prefill launches it once per layer.
@@ -19,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import AggSpec, EdgeCloudPipeline, PipelineConfig, Query, make_table
+from repro_torch.core import (AggSpec, EdgeCloudPipeline, PipelineConfig, Query, StreamSession,
+                              WindowSpec, make_table, pane_windows)
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.stratify import SHENZHEN_BBOX
 from repro_torch.data import materialize, shenzhen_taxi_stream
@@ -29,6 +34,7 @@ from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.geohash import geohash_encode, geohash_encode_plain
 from repro_torch.kernels.sample_mask import sample_mask, sample_mask_plain
+from repro_torch.kernels.stratified_stats import stratified_stats, stratified_stats_plain
 from repro_torch.models import init_params
 
 pytestmark = pytest.mark.gpu
@@ -119,7 +125,7 @@ def test_empty_window_launches_only_what_writes(cuda):
                                 torch.empty(0, dtype=torch.bool, device=cuda), 4)
     assert not count.any() and not s1.any() and not s2.any() and s1.shape == (2, 4)
     assert build.LAUNCHES == {"geohash": 0, "sample_mask": 0, "edge_reduce": 1,
-                              "edge_megakernel": 0, "flash_attention": 0}
+                              "edge_megakernel": 0, "stratified_stats": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("mode", ["sidx", "latlon"])
@@ -200,6 +206,64 @@ def test_segment_execute_is_bitwise_reproducible(cuda):
         for field in est._fields:
             assert torch.equal(getattr(est, field).view(torch.int32),
                                getattr(runs[1].estimates[key], field).view(torch.int32))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("float_mask", [False, True], ids=["bool_mask", "float_mask"])
+def test_stratified_stats_kernel_deterministic_and_matches_plain(cuda, bf16, float_mask):
+    rng = np.random.default_rng(12)
+    n, s = 300_000, 6558
+    sidx = np.minimum((rng.random(n) ** 3 * s).astype(np.int64), s - 1)
+    pick = rng.random(n)
+    sidx[pick < 0.01] = -1
+    sidx[(pick >= 0.01) & (pick < 0.02)] = s + 5
+    vals = torch.from_numpy(rng.normal(25, 8, n).astype(np.float32))
+    if bf16:
+        vals = vals.to(torch.bfloat16)
+    mask = torch.from_numpy(rng.random(n).astype(np.float32) if float_mask else rng.random(n) < 0.8)
+    args = [torch.from_numpy(sidx), vals, mask]
+    build.reset_launches()
+    got = stratified_stats(*(a.to(cuda) for a in args), s)
+    again = stratified_stats(*(a.to(cuda) for a in args), s)
+    assert build.LAUNCHES["stratified_stats"] == 2
+    plain = stratified_stats_plain(*args, s)
+    for g, a, p in zip(got, again, plain):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.cpu(), p, rtol=2e-6, atol=1e-3)
+    if not float_mask:
+        assert torch.equal(got[0].cpu(), plain[0])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_session_step_on_card_equals_execute_and_cpu(cuda, backend):
+    stream = shenzhen_taxi_stream(num_chunks=4, seed=5)
+    panes = list(pane_windows(stream, pane_tuples=40_000))
+    table = make_table(*SHENZHEN_BBOX, precision=6, neighborhood_precision=4)
+    cfg = PipelineConfig(backend=backend, uplink_codec="delta:sparse")
+    q = Query(aggs=(AggSpec("mean", "value"), AggSpec("p50", "value"), AggSpec("var", "value")),
+              group_by="neighborhood", bootstrap_replicates=20)
+    pipe = EdgeCloudPipeline(table, cfg)
+    want = pipe.execute(q, torch.Generator(device=cuda).manual_seed(1), panes[0], 0.8)
+    sess = StreamSession(pipe, initial_fraction=0.8)
+    reg = sess.register(q)
+    got = sess.step(torch.Generator(device=cuda).manual_seed(1), panes[0]).results[reg.qid]
+    for key, est in want.estimates.items():
+        for field in est._fields:
+            assert torch.equal(getattr(est, field).view(torch.int32),
+                               getattr(got.estimates[key], field).view(torch.int32))
+    sliding = Query(aggs=(AggSpec("mean", "occupancy"),), bootstrap_replicates=0)
+    card_sess = StreamSession(pipe, initial_fraction=0.8)
+    cpu_sess = StreamSession(EdgeCloudPipeline(table.to("cpu"), cfg, device="cpu"),
+                             initial_fraction=0.8)
+    for s in (card_sess, cpu_sess):
+        s.register(sliding, window=WindowSpec("sliding", size=2))
+    for pane in panes[:3]:
+        u = torch.rand(len(pane.lat), generator=torch.Generator().manual_seed(7))
+        on_card = card_sess.step(None, pane, uniforms=u.to(cuda)).results[0]
+        on_cpu = cpu_sess.step(None, pane, uniforms=u).results[0]
+        assert int(on_card.n_sampled) == int(on_cpu.n_sampled)
+        torch.testing.assert_close(on_card.estimates["mean_occupancy"].value.cpu(),
+                                   on_cpu.estimates["mean_occupancy"].value, rtol=1e-4, atol=0.0)
 
 
 FLASH_SHAPES = [(1, 256, 4, 4, 64), (2, 512, 8, 2, 64), (1, 512, 8, 1, 128), (1, 256, 4, 4, 112),

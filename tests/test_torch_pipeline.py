@@ -272,8 +272,24 @@ def test_execute_draws_normals_after_uniforms_from_one_generator(setup):
 
 @pytest.mark.parametrize("kwargs", [dict(mode="raw"), dict(uplink_codec="sparse")])
 def test_later_slices_raise_not_implemented(kwargs):
+    """Raw mode and the uplink codecs are part of the port now and build;
+    session checkpoints and the sharded path are not, and raise."""
+    from repro_torch.core.session import StreamSession
+
+    table = tstrat.make_table(*tstrat.CHICAGO_BBOX, precision=4, device="cpu")
+    pipe = tpipe.EdgeCloudPipeline(table, tpipe.PipelineConfig(**kwargs), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        StreamSession(pipe, sharded=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        StreamSession(pipe).checkpoint()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        StreamSession(pipe).restore({})
     with pytest.raises(NotImplementedError):
-        tpipe.PipelineConfig(**kwargs)
+        pipe.run_stream([], sharded=True)
+    with pytest.raises(ValueError):
+        tpipe.PipelineConfig(uplink_codec="bogus")
+    with pytest.raises(ValueError):
+        tpipe.PipelineConfig(mode="bogus")
     with pytest.raises(ValueError):
         tpipe.PipelineConfig(backend="bogus")
     with pytest.raises(ValueError):
@@ -325,3 +341,26 @@ def test_streams_and_windows_copies_match_jax():
                 assert np.array_equal(a.columns[k], b.columns[k])
             assert np.array_equal(a.lat, b.lat) and np.array_equal(a.valid, b.valid)
             assert (a.size, a.capacity, a.n_dropped) == (b.size, b.capacity, b.n_dropped)
+
+
+def test_to_device_keeps_values_and_dtypes():
+    """Host values reach a device with the dtype asked for and the values
+    given: scalars, lists, read-only numpy arrays and CPU tensors; a tensor
+    on another device moves with a plain ``.to``."""
+    from repro_torch.core.transfer import to_device
+
+    ro = np.arange(5, dtype=np.float64)
+    ro.flags.writeable = False
+    cases = [(0.8, torch.float32, torch.tensor(0.8, dtype=torch.float32)),
+             (7, torch.int32, torch.tensor(7, dtype=torch.int32)),
+             (np.float32(0.3), torch.float32, torch.tensor(0.3, dtype=torch.float32)),
+             ([0.2, 0.5], torch.float32, torch.tensor([0.2, 0.5])),
+             ([True, False], torch.bool, torch.tensor([True, False])),
+             (ro, torch.float32, torch.arange(5, dtype=torch.float32)),
+             (torch.arange(3), torch.int64, torch.arange(3))]
+    for x, dtype, want in cases:
+        got = to_device(x, dtype, "cpu")
+        assert got.dtype == dtype and got.device.type == "cpu"
+        assert torch.equal(got, want)
+    meta = to_device(torch.empty(4, device="meta"), torch.float64, "meta")
+    assert meta.device.type == "meta" and meta.dtype == torch.float64
