@@ -50,9 +50,8 @@ last line is printed:
    SLO, a raw-mode query and a bootstrap query, in tumbling, sliding (3)
    and hopping (6, 2) windows, over the Shenzhen stream cut into 6 panes of
    200 000 tuples; dense and with the delta:sparse codec, on pallas and
-   fused.  A one-query step equals ``execute`` bit for bit, batched emits
-   the per-query emits, two runs each other, the lossless codec the dense
-   session (with fewer bytes); sliding windows within 10% MAPE of the exact
+   fused.  A one-query step equals ``execute`` bit for bit, two runs each
+   other, the lossless codec the dense session (with fewer bytes); sliding windows within 10% MAPE of the exact
    answer; the card against the CPU on the Chicago stream (13 panes of
    10 000 tuples, Geohash-5) with the same uniforms and normals.  Host ms
    per step and syncs per step.
@@ -1049,13 +1048,13 @@ def register_tenants(sess, second: str, rois) -> dict:
     return regs
 
 
-def run_session(pipe, panes, second, rois, batched=True, uniforms=None, normals=None):
+def run_session(pipe, panes, second, rois, uniforms=None, normals=None):
     """A fresh session over ``pipe`` stepped through ``panes`` with a seeded
     generator (or the given per-pane uniforms and normals); -> (session,
     registrations, steps, host ms per step)."""
     from repro_torch.core import StreamSession
 
-    sess = StreamSession(pipe, initial_fraction=FRACTION, batched_finalize=batched)
+    sess = StreamSession(pipe, initial_fraction=FRACTION)
     regs = register_tenants(sess, second, rois)
     gen = None if uniforms is not None else torch.Generator(device=pipe.device).manual_seed(SEED)
     steps, ms = [], []
@@ -1171,10 +1170,9 @@ def phase_session(dev, card: str) -> tuple[dict, list]:
              f"{table.num_slots} slots): launches={launches}"]
     for (backend, codec), (sess, regs, steps, ms) in runs.items():
         emits = sum(len(st.results) for st in steps)
-        batches = sum(len(st.results._batches) for st in steps)
         lines.append(
             f"[{card}] session {backend}/{codec or 'dense'}: {len(sess.registrations)} queries in "
-            f"{len(sess._fusion_groups)} fusion groups, {emits} results ({batches} batched emits), "
+            f"{len(sess._fusion_groups)} fusion groups, {emits} results, "
             f"{sess.total_passes} passes, {sess.total_comm_bytes} uplink bytes; host ms per step "
             f"median {statistics.median(ms):.3f} (first {ms[0]:.3f}, all "
             f"{', '.join(f'{t:.1f}' for t in ms)}); programs built {sess.pipe.compile_count}")
@@ -1190,18 +1188,13 @@ def phase_session(dev, card: str) -> tuple[dict, list]:
         err = sliding_mape(table, panes, regs, dense)
         check(err < MAPE_LIMIT, f"session {backend}: sliding-window MAPE {err:.4f} >= {MAPE_LIMIT}")
         lines.append(f"session {backend}: sliding windows' MAPE against the exact answer {err:.6f}")
-        check(any(len(st.results._batches) for st in dense), f"session {backend}: no batched emit")
         hop = [st for st in dense if regs["raw"].qid in st.results]
         check(len(hop) == 3 and int(hop[-1].results[regs["raw"].qid].n_valid) > 0,
               f"session {backend}: the hopping window emitted {len(hop)} times")
-    # batched == per-query emits, and a second run, on pallas
-    base = runs[("pallas", None)][2]
-    n = same_steps(base, run_session(pipes[("pallas", None)], panes, second, rois,
-                                     batched=False)[2], "session: batched vs per-query emits")
-    same_steps(base, run_session(pipes[("pallas", None)], panes, second, rois)[2],
-               "session: two runs")
-    lines.append(f"session pallas: batched emits == per-query emits bit for bit ({n} results); "
-                 "two runs bitwise equal")
+    # a second run, on pallas
+    n = same_steps(runs[("pallas", None)][2],
+                   run_session(pipes[("pallas", None)], panes, second, rois)[2], "session: two runs")
+    lines.append(f"session pallas: two runs bitwise equal ({n} results)")
     # a one-query session's first step is execute
     for backend in BACKENDS:
         pipe = pipes[(backend, None)]

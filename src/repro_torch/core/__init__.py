@@ -22,7 +22,7 @@ Layers (bottom-up):
                 refined fused pass of a fusion group
   session     — ``StreamSession``: registered continuous queries served by
                 one sampling pass per fusion group and pane, pane-merged
-                sliding/hopping windows, batched emits, the QoS loop
+                sliding/hopping windows, per-query emits, the QoS loop
 
 Typical use::
 

@@ -757,7 +757,7 @@ def merge_accs(a: dict, b: dict) -> dict:
 
 def stack_trees(trees: Sequence):
     """Stack like-structured trees of states (dicts, NamedTuples, tensors)
-    along a new leading axis: pane rings, batched emits."""
+    along a new leading axis: a query's pane ring."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in first}

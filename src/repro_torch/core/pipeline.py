@@ -35,7 +35,7 @@ Two transmission modes (paper §3.6.4), chosen per query:
 
 Entry points: ``execute`` (one query, one window); the edge and cloud
 halves a :class:`~.session.StreamSession` composes (``_pass_fn``,
-``_refined_pass_fn``, ``finalize_fn``, ``batched_finalize_fn``, cached on
+``_refined_pass_fn`` and ``finalize_fn``, cached on
 the pipeline and counted in ``cache_stats``); the legacy
 ``process_window`` and ``run_stream`` shims.
 
@@ -595,49 +595,23 @@ class EdgeCloudPipeline:
             self._refined_passes[fused.members] = fn
         return fn
 
-    def _finalize_body(self, plan: Plan, num_panes: int):
-        """``(stats, normals) -> (estimates, merged)`` for one query's
-        window: merge ``num_panes`` stacked pane states (pass-through for
-        one pane, so a one-pane window finalizes ``execute``'s bits) and
-        finalize with the given bootstrap draws."""
-        table = self.table
-
-        def run(stats, normals):
-            if num_panes > 1:
-                stats = {c: estimators.merge_accs_panes(stats[c]) for c in plan.columns}
-            return aqp.finalize(plan, table, stats, normals=normals), stats
-
-        return run
-
     def finalize_fn(self, plan: Plan, num_panes: int):
-        """The cloud-side emit of one registration, cached by finalize
-        signature: queries that differ only in sampling method, mode or ROI
-        share one program (finalize never reads those)."""
-        key = ("single", aqp.finalize_signature(plan), num_panes)
+        """The cloud-side emit of one registration: ``(stats, normals) ->
+        (estimates, merged)``, merging ``num_panes`` stacked pane states
+        (pass-through for one pane, so a one-pane window finalizes
+        ``execute``'s bits) and finalizing with the given bootstrap draws.
+        Cached by finalize signature: queries that differ only in sampling
+        method, mode or ROI share one program (finalize never reads those)."""
+        key = (aqp.finalize_signature(plan), num_panes)
         fn = self._finalizers.get(key)
         self._cache_event("finalize", fn is not None)
         if fn is None:
-            fn = self._finalizers[key] = self._finalize_body(plan, num_panes)
-        return fn
+            table = self.table
 
-    def batched_finalize_fn(self, plan: Plan, num_panes: int, batch: int):
-        """The emit of ``batch`` queries sharing a finalize signature, with
-        one set of bootstrap draws for all: ``(member_stats, normals) ->
-        (estimates, stats)`` with a leading batch axis of width ``batch``
-        (sessions pad to a power of two by repeating row 0).  Each row runs
-        the singleton finalize, so it carries exactly the singleton's bits;
-        a stacked (vectorized) finalize is not part of this package yet."""
-        key = ("batched", aqp.finalize_signature(plan), num_panes, batch)
-        fn = self._finalizers.get(key)
-        self._cache_event("finalize", fn is not None)
-        if fn is None:
-            body = self._finalize_body(plan, num_panes)
-
-            def fn(member_stats, normals):
-                rows = [body(st, normals) for st in member_stats]
-                rows += [rows[0]] * (batch - len(rows))  # padding repeats row 0
-                stack = estimators.stack_trees
-                return stack([r[0] for r in rows]), stack([r[1] for r in rows])
+            def fn(stats, normals):
+                if num_panes > 1:
+                    stats = {c: estimators.merge_accs_panes(stats[c]) for c in plan.columns}
+                return aqp.finalize(plan, table, stats, normals=normals), stats
 
             self._finalizers[key] = fn
         return fn

@@ -14,10 +14,8 @@ amortizes the edge work across the whole registered workload:
     leaves (or dissolves) one; no other group replans, and every admission
     decision lands in ``plan_log``.
   * Each ``step(generator, pane)`` runs one stratify + EdgeSOS pass per
-    fusion group.  Due windows emit through a batched finalize: queries
-    sharing a finalize signature and ring length emit as one batch, their
-    estimates stacked on a leading axis; ``step.results`` carves per-query
-    views lazily, on access.
+    fusion group.  Due windows emit query by query, each through the
+    finalize program cached for its signature and ring length.
   * Sliding and hopping windows merge pane accumulator states cloud-side
     (:func:`~.estimators.merge_accs_panes`) without re-reading tuples.
   * Per-query QoS runs through the vectorized controller
@@ -37,7 +35,7 @@ hands its step key to every group unfolded.  The bootstrap's normals are
 drawn after the uniforms, once per step and per normals layout
 (:func:`~.query.normals_layout`), and every emit with that layout takes the
 same draws.  So a one-query session step equals ``execute`` on the same
-generator bit for bit, and a batched emit equals its singleton emits.
+generator bit for bit.
 
 Host syncs.  A step waits on the device where the reference package does:
 at each codec frame (the uplink boundary, one copy of the frame's states
@@ -61,7 +59,7 @@ from . import codec as wirecodec
 from . import estimators, feedback
 from . import query as aqp
 from .feedback import SLO, ControllerState
-from .query import FusedPlan, Plan, Query, QueryResult, finalize_signature, fuse, fusion_key
+from .query import FusedPlan, Plan, Query, QueryResult, fuse, fusion_key
 from .transfer import to_device
 from .windows import WindowSpec
 
@@ -155,66 +153,6 @@ class _FusionGroup:
         return self._fused
 
 
-class _EmitBatch(NamedTuple):
-    """One batched emit: ``regs`` sharing a finalize signature and pane
-    count, their stacked estimates/stats (leading axis ``>= len(regs)``,
-    padded rows repeat row 0), and per-member window counters
-    ``(n_sampled, n_valid, n_overflow, n_truncated, comm_bytes,
-    n_dropped)``."""
-
-    regs: tuple
-    estimates: dict  # agg key -> AggEstimate with batch-leading leaves
-    stats: dict  # column -> {kind: state} with batch-leading leaves
-    counters: tuple
-
-
-_PENDING = object()
-
-
-def _carve_result(batch: _EmitBatch, i: int) -> QueryResult:
-    """Member ``i``'s :class:`QueryResult` view of a batch."""
-    estimates = {k: aqp.AggEstimate(*(x[i] for x in est)) for k, est in batch.estimates.items()}
-    stats = {
-        c: {kind: type(st)(*(x[i] for x in st)) for kind, st in kinds.items()}
-        for c, kinds in batch.stats.items()
-    }
-    n_s, n_v, n_o, n_t, comm, dropped = batch.counters[i]
-    return QueryResult(estimates=estimates, stats=stats, n_sampled=n_s, n_valid=n_v,
-                       n_overflow=n_o, n_truncated=n_t, comm_bytes=comm, n_dropped=dropped)
-
-
-class _LazyResults(dict):
-    """``qid -> QueryResult`` over batched emits: batch members are carved
-    out of the stacked output only on access (``[]``, ``get``, ``values``,
-    ``items``); membership, ``len`` and ``keys`` never carve."""
-
-    def __init__(self):
-        super().__init__()
-        self._sources: dict[int, tuple[_EmitBatch, int]] = {}
-        self._batches: list[_EmitBatch] = []
-
-    def _add(self, qid: int, batch: _EmitBatch, row: int) -> None:
-        dict.__setitem__(self, qid, _PENDING)
-        self._sources[qid] = (batch, row)
-
-    def __getitem__(self, qid):
-        v = dict.__getitem__(self, qid)
-        if v is _PENDING:
-            batch, row = self._sources.pop(qid)
-            v = _carve_result(batch, row)
-            dict.__setitem__(self, qid, v)
-        return v
-
-    def get(self, qid, default=None):
-        return self[qid] if qid in self else default
-
-    def values(self):  # noqa: D102 - dict interface
-        return [self[q] for q in self]
-
-    def items(self):  # noqa: D102 - dict interface
-        return [(q, self[q]) for q in self]
-
-
 class SessionStep(NamedTuple):
     """Outcome of feeding one pane to the session.
 
@@ -275,8 +213,9 @@ class StreamSession:
             if speed.qid in step.results:
                 ...  # step.results[speed.qid].estimates["mean_value"]
 
-    The session runs on its pipeline's device.  ``batched_finalize=False``
-    emits query by query (the A/B of the batched path).
+    The session runs on its pipeline's device.  Emits go query by query;
+    ``batched_finalize`` is accepted for the reference package's signature
+    and changes nothing.
     """
 
     def __init__(self, pipeline, *, sharded: bool = False, initial_fraction: float = 0.8,
@@ -288,7 +227,6 @@ class StreamSession:
             )
         self.pipe = pipeline
         self.initial_fraction = float(initial_fraction)
-        self.batched_finalize = bool(batched_finalize)
         self.pane_index = 0
         self.total_comm_bytes = 0
         self.total_dropped = 0
@@ -445,58 +383,24 @@ class StreamSession:
                            n_valid=n_valid, n_overflow=n_overflow, n_truncated=n_truncated,
                            comm_bytes=comm, n_dropped=dropped)
 
-    def _emit_batch(self, regs: list, num_panes: int, normals: _Normals) -> _EmitBatch:
-        """One emit over a finalize-signature batch, padded to the next power
-        of two (churning widths step through O(log Q) programs), with one
-        set of draws for every row."""
-        member_stats = [self._window_stats(reg) for reg in regs]
-        b_pad = 1 << (len(regs) - 1).bit_length()
-        fn = self.pipe.batched_finalize_fn(regs[0].plan, num_panes, b_pad)
-        estimates, stats = fn(member_stats, normals(regs[0].plan, regs[0].ring[0].stats))
-        counters = tuple(self._window_counters(reg) for reg in regs)
-        return _EmitBatch(regs=tuple(regs), estimates=estimates, stats=stats, counters=counters)
-
-    def _emit_due(self, due: list, normals: _Normals, out: _LazyResults):
-        """Emit every due registration into ``out``, batched by (finalize
-        signature, ring length); a batch of one (and every query of a
-        ``batched_finalize=False`` session) takes the singleton emit.
-        Returns ``(singles, batches)`` for the controller update."""
-        singles: list[tuple] = []
-        batch_list = out._batches
-        if not self.batched_finalize:
-            for reg in due:
-                res = self._emit(reg, normals)
-                out[reg.qid] = res
-                singles.append((reg, res))
-            return singles, batch_list
-        partition: dict[tuple, list] = {}
+    def _emit_due(self, due: list, normals: _Normals, out: dict) -> list:
+        """Emit every due registration into ``out``, query by query;
+        returns the ``(registration, result)`` pairs for the controller
+        update."""
+        emitted = []
         for reg in due:
-            partition.setdefault((finalize_signature(reg.plan), len(reg.ring)), []).append(reg)
-        computed: dict[tuple, tuple] = {}
-        for reg in due:
-            bkey = (finalize_signature(reg.plan), len(reg.ring))
-            members = partition[bkey]
-            if len(members) == 1:
-                res = self._emit(reg, normals)
-                out[reg.qid] = res
-                singles.append((reg, res))
-                continue
-            entry = computed.get(bkey)
-            if entry is None:
-                batch = self._emit_batch(members, bkey[1], normals)
-                entry = computed[bkey] = (batch, {m.qid: i for i, m in enumerate(members)})
-                batch_list.append(batch)
-            out._add(reg.qid, entry[0], entry[1][reg.qid])
-        return singles, batch_list
+            res = out[reg.qid] = self._emit(reg, normals)
+            emitted.append((reg, res))
+        return emitted
 
     def emit_all(self, generator: torch.Generator | None = None, *,
-                 normals=None) -> _LazyResults:
+                 normals=None) -> dict:
         """Finalize every registration's current window on demand, the
         pull-based serving read between panes: no pane, window or
         controller advances; registrations never stepped are absent.
         Bootstrap draws come from ``generator`` (once per layout) unless
         ``normals(plan, stats)`` gives them."""
-        out = _LazyResults()
+        out: dict = {}
         due = [r for r in self._regs.values() if r.ring]
         self._emit_due(due, _Normals(self.pipe.table, generator, normals), out)
         return out
@@ -539,7 +443,7 @@ class StreamSession:
         lat, lon, cols, valid = self.pipe._window_arrays(pane, columns)
         u = self.pipe._uniforms(generator, lat.shape[0], uniforms)
         codec_on = self.pipe.codec_spec is not None
-        emitted = _LazyResults()
+        emitted: dict = {}
         due: list[Registration] = []
         comm_total = 0
         for grp in groups:
@@ -590,12 +494,10 @@ class StreamSession:
                 reg.downstream_tuples = reg.downstream_tuples + n_s
                 if reg.panes_seen % reg.window.stride == 0:
                     due.append(reg)
-        singles, batches = self._emit_due(
-            due, _Normals(self.pipe.table, generator, normals), emitted
-        )
+        results = self._emit_due(due, _Normals(self.pipe.table, generator, normals), emitted)
         for reg in due:  # emitted windows consumed their newly shipped bytes
             reg.pending_comm = 0
-        self._update_controllers(singles, batches)
+        self._update_controllers(results)
         self.pane_index += 1
         self.total_comm_bytes += comm_total
         self.total_dropped += n_dropped
@@ -653,50 +555,26 @@ class StreamSession:
         rel = res.estimates[reg.qos_key].relative_error
         return cls._worst_finite(rel) if rel.dim() else rel
 
-    @classmethod
-    def _observed_re_batch(cls, qos_key: str, batch: _EmitBatch) -> torch.Tensor:
-        """:meth:`_observed_re` over a batch: the per-row RE vector."""
-        rel = batch.estimates[qos_key].relative_error
-        return cls._worst_finite(rel) if rel.dim() > 1 else rel
-
-    def _update_controllers(self, singles: list, batches: list) -> None:
+    def _update_controllers(self, results: list) -> None:
         """One vectorized controller step over all registrations; only the
         queries that emitted an error-bounded result this pane advance.
-        Batched emits feed their RE vectors directly; singleton emits stack
-        into one more segment.  The new fractions are read back once."""
-        rows = None
-        segments = []
+        The new fractions are read back once."""
         active_rows: list[int] = []
-        s_rows, s_re, s_nv = [], [], []
-        for reg, res in singles:
+        observed_re, observed_n = [], []
+        for reg, res in results:
             if not reg.qos_active:
                 continue
-            if rows is None:
+            if not active_rows:
                 rows, slo_stack = self._controller_layout()
-            s_rows.append(rows[reg.qid])
-            s_re.append(self._observed_re(reg, res).to(torch.float32))
-            s_nv.append(res.n_valid.to(torch.float32))
-        if s_rows:
-            segments.append((s_rows, torch.stack(s_re), torch.stack(s_nv)))
-            active_rows.extend(s_rows)
-        for batch in batches:
-            qos_key = batch.regs[0].qos_key
-            act = [i for i, r in enumerate(batch.regs) if r.qos_active]
-            if qos_key is None or not act:
-                continue
-            if rows is None:
-                rows, slo_stack = self._controller_layout()
-            rel = self._observed_re_batch(qos_key, batch)
-            idx = to_device(act, torch.int64, rel.device)
-            b_rows = [rows[batch.regs[i].qid] for i in act]
-            n_valid = torch.stack([batch.counters[i][1] for i in act]).to(torch.float32)
-            segments.append((b_rows, rel[idx].to(torch.float32), n_valid))
-            active_rows.extend(b_rows)
+            active_rows.append(rows[reg.qid])
+            observed_re.append(self._observed_re(reg, res).to(torch.float32))
+            observed_n.append(res.n_valid.to(torch.float32))
         if not active_rows:
             return
         dev = self.device
         regs = list(self._regs.values())
         state = feedback.stack_states(((r.fraction, r.re_ema, r.steps) for r in regs), dev)
+        segments = [(active_rows, torch.stack(observed_re), torch.stack(observed_n))]
         re_obs, n_obs = feedback.scatter_observations(len(regs), segments, dev)
         active = [False] * len(regs)
         for i in active_rows:

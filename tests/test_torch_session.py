@@ -12,8 +12,8 @@ summation order; floor 1e-4 of the field's largest finite magnitude), the
 controller fractions within 1e-5.
 
 Within the port: a one-query session step equals ``execute`` bit for bit
-(bootstrap bounds included), batched emits equal the per-query emits bit
-for bit, two runs are bitwise equal, a lossless codec leaves every emit
+(bootstrap bounds included), queries sharing a finalize signature share
+one emit program, two runs are bitwise equal, a lossless codec leaves every emit
 bit-identical to the dense session with fewer bytes, and register /
 unregister churn over seen shapes builds no program.
 """
@@ -167,12 +167,12 @@ def test_one_query_step_equals_execute(tables, stream, backend, method):
     assert got.comm_bytes == int(want.comm_bytes)
 
 
-def _session(tt, stream, batched=True, codec=None, backend="pallas"):
+def _session(tt, stream, codec=None, backend="pallas"):
     pipe = tpipe.EdgeCloudPipeline(tt, tpipe.PipelineConfig(backend=backend, uplink_codec=codec,
                                                             raw_capacity=1500), device="cpu")
-    sess = tsess.StreamSession(pipe, initial_fraction=0.6, batched_finalize=batched)
+    sess = tsess.StreamSession(pipe, initial_fraction=0.6)
     regs = [sess.register(q, **kw) for q, kw in _registrations(tquery, twin, tfb)]
-    # a bootstrap pair sharing one finalize signature (a batch of two)
+    # a bootstrap pair sharing one finalize signature (and so one emit program)
     for roi in (ROI_SOUTH, None):
         q = tquery.Query(aggs=(tquery.AggSpec("var", "value"), tquery.AggSpec("p50", "value")),
                          roi=roi, group_by="neighborhood", bootstrap_replicates=25)
@@ -196,13 +196,20 @@ def _same_steps(a, b):
 @pytest.mark.parametrize("backend", ["pallas", "fused"])
 def test_batched_emits_equal_singletons_and_runs_repeat(tables, stream, backend):
     _, tt = tables
-    sess, _, batched = _session(tt, stream, backend=backend)
-    assert any(len(s.results._batches) for s in batched)  # batched emits happened
-    _, _, single = _session(tt, stream, batched=False, backend=backend)
-    _same_steps(batched, single)
+    """Emits go query by query; the bootstrap pair, which shares a finalize
+    signature and ring length, shares one cached emit program, and its
+    members' emits still differ by ROI.  A second run is bitwise equal."""
+    sess, regs, first = _session(tt, stream, backend=backend)
+    pair = regs[-2:]
+    assert tquery.finalize_signature(pair[0].plan) == tquery.finalize_signature(pair[1].plan)
+    emitted = [s for s in first if pair[0].qid in s.results]
+    assert emitted and all(pair[1].qid in s.results for s in emitted)
+    assert sess.pipe.cache_stats["finalize"]["hits"] >= len(emitted)
+    last = emitted[-1].results
+    assert not _bits_equal(last[pair[0].qid].estimates, last[pair[1].qid].estimates)
     _, _, again = _session(tt, stream, backend=backend)
-    _same_steps(batched, again)
-    assert [s.comm_bytes for s in batched] == [s.comm_bytes for s in again]
+    _same_steps(first, again)
+    assert [s.comm_bytes for s in first] == [s.comm_bytes for s in again]
 
 
 @pytest.mark.parametrize("codec", ["sparse", "delta:sparse"])
@@ -234,9 +241,11 @@ def test_churn_builds_no_program(tables, stream):
 def test_emit_all_is_lazy_and_repeats_the_windows(tables, stream):
     _, tt = tables
     sess, regs, steps = _session(tt, stream)
+    before = (sess.pane_index, [(r.fraction, r.steps, len(r.ring)) for r in regs])
     out = sess.emit_all(torch.Generator().manual_seed(8))
     assert set(out) == {r.qid for r in regs}
-    assert all(dict.__getitem__(out, q) is tsess._PENDING for q in out._sources)
+    # a serving read: no pane, window or controller advances
+    assert (sess.pane_index, [(r.fraction, r.steps, len(r.ring)) for r in regs]) == before
     raw_q = regs[6].qid  # a tumbling one-pane query: its window is the last pane
     assert _bits_equal(out[raw_q].estimates, steps[-1].results[raw_q].estimates)
 
