@@ -7,7 +7,10 @@ the CUDA toolkit.  Phases, in order; any failure exits non-zero before the
 last line is printed:
 
 1. Card and build: the card's name and power limit, then one ``nvcc`` per
-   CUDA source, all started together, and the build time.
+   CUDA source, all started together, and the build time; then the counts
+   of wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions that
+   ``cuobjdump -sass`` finds in the flash library (both must be non-zero:
+   the bf16 path runs on them).
 2. Kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (the 1.2 M-tuple
    Shenzhen window at Geohash-6), twice, bitwise reproducible.
@@ -76,7 +79,13 @@ last line is printed:
    one profiled ``execute`` per method and backend and one profiled
    prefill and decode step (device busy time and the heaviest device ops).
    stratified_stats is timed at the window's shape in f32 and bf16, its
-   library call one f32 ``index_add_`` of the stacked rows.
+   library call one f32 ``index_add_`` of the stacked rows.  The edge
+   megakernel's device time at ``latlon1`` is split by pass (the profiler's
+   per-kernel times of ten calls, each after an L2 flush).
+
+``python3 chip_smoke.py --split-only DIR`` prints only that split, for the
+package in ``DIR/src`` (another checkout, such as the parent commit's), so
+that two trees' splits can come from one card.
 
 Each phase prints its seconds.  The line before the card line is a JSON
 object with one entry per kernel (``launches``: the executes of phase 3 for
@@ -101,7 +110,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# ``--split-only DIR``: only the edge megakernel's per-pass split, of the
+# package in DIR/src (another checkout, for an A/B on one card)
+SPLIT_ONLY = len(sys.argv) == 3 and sys.argv[1] == "--split-only"
+sys.path.insert(0, str((Path(sys.argv[2]).resolve() if SPLIT_ONLY else ROOT) / "src"))
 
 FRACTION = 0.8
 MAPE_LIMIT = 0.10  # the paper's bound at an 80% sampling rate
@@ -129,8 +141,10 @@ EDGE_KERNELS = ("geohash", "sample_mask", "edge_reduce", "edge_megakernel")
 # the bf16 tensor-core peak (NVIDIA data sheet, dense) for the flash bound
 PEAK_BF16_OPS_PER_S = 989e12
 # flash attention against its plain version: the reference kernel test's
-# tolerances (tests/test_kernels.py); the kernel keeps the softmax weights
-# in f32 where the plain version casts them to bf16
+# tolerances (tests/test_kernels.py).  On f32 the kernel keeps the softmax
+# weights in f32; on bf16 it rounds them to bf16 for the wgmma product with
+# V, as the plain version does, but from its own running max and
+# normalizer, so the two differ at bf16 rounding
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (B, S, H, K, dh): the reference kernel test's shapes, then the serving
 # prefill's (4 requests of 1024 tokens, qwen1.5-0.5b's 16 heads of 64)
@@ -1430,9 +1444,65 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
                      f"({b_by}), plain {t['plain_ms']:.4f} ms, library (SDPA) "
                      f"{t['library_ms']:.4f} ms")
     times["edge_megakernel"] = times["edge_megakernel/latlon1"]
+    lines.append(megakernel_split(x, card))
     lines.append(f"[{card}] edge_reduce glue: stable sort of sidx alone "
                  f"{timer.ms(lambda: torch.sort(x['sidx'], stable=True)):.4f} ms")
     return times, lines + execute_times(windows, dev, card)
+
+
+def megakernel_split(x, card: str, reps: int = 10) -> str:
+    """Device time of each pass of one edge megakernel call at execute's
+    latlon shape (``latlon1``): the mean over ``reps`` profiled calls, each
+    after an L2 flush, of every device kernel the call launches, grouped by
+    pass.  Works on any tree whose wrapper has this signature."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.edge_megakernel import edge_megakernel
+
+    args, kw = megakernel_cases(x)["latlon1"]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=args[0].device)
+    edge_megakernel(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()  # evicts the inputs; its kernel is left out below
+            edge_megakernel(*args, **kw)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and "bitwise_not" not in e.key}
+
+    def pass_of(name: str) -> str:
+        for label, marks in (("resolve", ("resolve_kernel",)),
+                             ("tile: resolve + sort + records", ("tile_kernel",)),
+                             ("partial + finish sums", ("partial_kernel", "segsum::finish")),
+                             ("finish: sums + bins to f32", ("finish_kernel",)),
+                             ("to_float", ("to_float_kernel",)),
+                             ("zero-fill", ("Fill", "fill"))):
+            if any(mark in name for mark in marks):
+                return label
+        return "sort glue (sorted_runs)"
+
+    passes: dict[str, float] = {}
+    for name, ms in kernels.items():
+        passes[pass_of(name)] = passes.get(pass_of(name), 0.0) + ms
+    return (f"[{card}] edge_megakernel/latlon1 per-pass device ms (profiler, mean of {reps} calls "
+            f"after an L2 flush): {json.dumps(passes)}; sum {sum(passes.values()):.4f} ms; "
+            f"kernels: {json.dumps({k[:70]: round(v, 4) for k, v in kernels.items()})}")
+
+
+def sass_line() -> str:
+    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    built flash library's SASS: the bf16 path issues both."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    check(all(counts.values()), f"flash_attention SASS lacks wgmma or TMA loads: {counts}")
+    return f"flash_attention SASS ({cuobjdump.name} -sass): {json.dumps(counts)}"
 
 
 def flash_calls(shape, dtype, dev):
@@ -1534,6 +1604,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"[phase 1] {len(build.KERNELS)} kernels {list(build.KERNELS)} built in "
           f"{phase_build():.2f} s", flush=True)
+    if SPLIT_ONLY:
+        table, cols, _ = load_window("shenzhen")
+        print(megakernel_split(kernel_inputs(table, cols, dev), card), flush=True)
+        return 0
+    print(f"[phase 1] {sass_line()}", flush=True)
 
     t0 = time.perf_counter()
     windows = {name: load_window(name) for name in ("shenzhen", "chicago")}

@@ -54,7 +54,9 @@ from .estimators import (
     Groups,
     QuantileSketch,
     StratumStats,
+    accumulate_column,
     accumulator,
+    column_stats,
     estimate,
     group_sum,
     groups_of,
@@ -64,6 +66,7 @@ from .estimators import (
     merge_column_stats,
     merge_column_stats_panes,
     merge_stats,
+    psum_stats,
     register_accumulator,
     sample_stats,
     sketch_quantile,
@@ -133,10 +136,12 @@ __all__ = [
     "WindowBatch",
     "WindowResult",
     "WindowSpec",
+    "accumulate_column",
     "accumulator",
     "bootstrap_normals",
     "bounds",
     "codec",
+    "column_stats",
     "compact",
     "count_windows",
     "edge_sample",
@@ -162,6 +167,7 @@ __all__ = [
     "merge_stats",
     "pane_windows",
     "pipeline",
+    "psum_stats",
     "query",
     "refined_preagg_bytes",
     "register_accumulator",

@@ -15,8 +15,7 @@
 // `_threshold_keep`) of src/repro/kernels/edge_megakernel/edge_megakernel.py.
 // That kernel walks a (member x strata-block x points-block) grid and turns
 // every gather and scatter into one-hot MXU contractions because the TPU
-// lacks both; here each thread gathers its threshold and scatters its
-// counts directly.
+// lacks both; here each thread gathers its threshold directly.
 //
 // Bound on an H100: memory.  At the main path's shape (1.2 M tuples,
 // 6558 slots, two f32 columns, one extrema and one sketch column, one
@@ -25,41 +24,78 @@
 // about 11.6 us at 3.35 TB/s.  The integer work per tuple (an encode, a
 // 13-step binary search, a log) is far below the card's rate.
 //
-// Design, for determinism and skew:
+// Design: two kernels, no float atomics, no global sort.
 //
-//  * Integer-valued rows (pop, keep, bins) count with int32 atomics in
-//    their output memory and are converted to f32 in place at the end,
-//    exact below 2^24.  Extrema use atomicMin/atomicMax on the
-//    order-preserving integer image of the float; min and max do not
-//    depend on order, and empty slots keep the images of +inf/-inf.
-//  * The float sums s1, s2 never use float atomics: the resolve pass
-//    writes each tuple's segment key (member, slot) and keep flag; the
-//    wrapper stable-sorts the keys (glue, as for edge_reduce), and
-//    segment_sum.cuh sums every segment's run in fixed-order chunks in
-//    double and rounds once.  The same inputs give the same bits on every
-//    run, and no warp walks more than one chunk however skewed the strata.
-//  * The code table (sorted int32, padded nowhere: lookup is a binary
-//    search over its true length) and member m's threshold row sit in
-//    shared memory, 52 KB at Geohash-6; a table too large for shared
-//    memory is read from global memory instead.
-//  * Values may arrive as bf16 (staged); they are widened to f32 before
-//    any product, compare or bin index.  No fast-math: the sketch bin
-//    index uses IEEE division and logf, as the plain version does.
+//  * tile_kernel: one block per (tile of at most TILE consecutive tuples,
+//    member); the wrapper spreads the window evenly over whole waves of
+//    tiles.  The block resolves its tuples (threshold row and code table in
+//    shared memory, read from global memory when they do not fit), then
+//    sorts the tile in shared memory by the key 2 slot + (not kept) with a
+//    block radix sort (stable: a key's tuples keep their load order); tuples
+//    that are not ok or have no slot sort last and drop out.  Each slot's
+//    tuples are now one run of sorted positions.  A segmented reduction
+//    writes one record per (tile, slot): thread t folds its ITEMS
+//    consecutive positions in order, a run that ends inside them is stored
+//    at once, and the thread that starts a run crossing into later threads
+//    adds their partial heads in thread order.  Records hold the ok and kept
+//    counts, each column's kept s1 and s2 in double, and the extrema as
+//    order-preserving integer images.  The value columns are staged in
+//    shared memory one at a time (coalesced, over the table the resolve no
+//    longer needs).  Sketch bins are counted with integer atomics, one per
+//    distinct (slot, bin) among a warp's lanes at each step
+//    (__match_any_sync): sorted, a hot slot fills whole warps.
+//  * finish_kernel: one warp per (member, slot) adds the slot's records over
+//    the tiles in tile order (lanes strided, then a fixed shuffle tree),
+//    rounds the sums to f32 once, decodes the extrema, and converts the
+//    slot's sketch bins to f32 in place.
+//
+// Why this shape: every sum is added in an order fixed by the data, so two
+// runs give the same bits, with no float atomics.  No global atomic counts
+// pop, keep or the extrema per tuple: in a skewed window (the Shenzhen
+// window's busiest Geohash-6 cells hold ~20 000 tuples each) the atomics of
+// a hot slot serialise.  And no sort of the whole window orders the sums:
+// the key of a tile's sort needs 14 bits (2 S + 1 values at Geohash-6), and
+// the tiles' order fixes the rest.
+//
+// Scratch: the records take M x S x tiles x (8 + 8 E + 16 C) bytes, read
+// once by the finish.  Counts are exact below 2^24.  Values may arrive as
+// bf16 (staged); they are widened to f32 before any product, compare or bin
+// index.  No fast-math: the sketch bin index uses IEEE division and logf, as
+// the plain version does.
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "geohash.cuh"
-#include "segment_sum.cuh"
 
 namespace {
+
+constexpr int TILE_THREADS = 1024;
+constexpr int ITEMS = 8;                     // tuples a thread sorts
+constexpr int TILE = TILE_THREADS * ITEMS;   // tuples a block sorts, at most
+constexpr int FINISH_THREADS = 256;
 
 // sketch bin layout: the constants of estimators.py
 constexpr int kBinsPerSide = 256;
 constexpr int kNumBins = 2 * kBinsPerSide + 1;
 constexpr float kMinMag = 1e-4f;
 constexpr float kLogGamma = 0.08f;
+
+constexpr int32_t kOrderedPosInf = 0x7F800000;   // ordered images of +inf, -inf
+constexpr int32_t kOrderedNegInf = -0x7F800001;
+
+using Sort = cub::BlockRadixSort<uint32_t, TILE_THREADS, ITEMS, uint16_t>;
+
+// the tile's sorted keys and tuple positions, over the sort's scratch
+union TileSmem {
+  typename Sort::TempStorage sort;
+  struct {
+    uint32_t key[TILE];
+    uint16_t pos[TILE];
+  } run;
+};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -80,8 +116,26 @@ __device__ __forceinline__ int sketch_bin(float v) {
   return kBinsPerSide;
 }
 
+// fixed butterflies: every lane ends with the same bits on every run
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ int32_t warp_min(int32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ int32_t warp_max(int32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 template <typename T>
-struct ResolveArgs {
+struct Args {
   const T* vals;                 // (C, N)
   const uint8_t* ok;             // member m at ok + m * ok_ms
   const float* scores;           // member m at scores + m * sc_ms
@@ -92,196 +146,370 @@ struct ResolveArgs {
   const int32_t* codes;          // sorted, num_codes entries
   int64_t ok_ms, sc_ms, sidx_ms;
   int64_t n;
-  int c, s, num_codes;
+  int c, s, num_codes, m;
   geohash_dev::Params geo;
   uint32_t ext_mask, sk_mask;    // value columns with extrema / sketch rows
   int e, k;                      // popcounts of the masks
-  int use_smem;
-  int32_t* pop;                  // (M, S)
-  int32_t* keep;                 // (M, S)
-  int32_t* bins;                 // (M, K, S, 513)
-  int32_t* mins;                 // (M, E, S) ordered images
-  int32_t* maxs;
-  int32_t* key;                  // (M * N) segment m * (S + 1) + slot
-  uint8_t* kept;                 // (M * N)
+  int use_smem, key_bits, tiles, per;  // per: tuples of a tile (<= TILE)
+  int front_bytes;               // dynamic shared memory before the sort's scratch
+  // records of the (member, slot, tile) runs, tile fastest; written where
+  // the tile holds an ok tuple of the slot (popc > 0), popc zero elsewhere
+  int32_t* popc;                 // (M, S, tiles)
+  int32_t* keepc;                // (M, S, tiles)
+  int32_t* ext;                  // (M, E, 2, S, tiles) ordered min, max
+  double* sums;                  // (M, 2C, S, tiles) s1 per column, then s2
+  int32_t* bins;                 // (M, K, S, 513) integer counts, then f32 in place
+  // outputs
+  float* pop;                    // (M, S)
+  float* keep;                   // (M, S)
+  float* s1;                     // (M, C, S)
+  float* s2;
+  float* mins;                   // (M, E, S)
+  float* maxs;
 };
 
 template <typename T>
-__global__ void resolve_kernel(ResolveArgs<T> a) {
-  extern __shared__ int32_t smem[];
-  const int m = blockIdx.y;
+__device__ __forceinline__ int64_t rec(const Args<T>& a, int m, int row, int rows, int slot,
+                                       int tile) {
+  return (((int64_t)m * rows + row) * a.s + slot) * a.tiles + tile;
+}
+
+// one (tile, slot) record: column col's sums, and its extrema as extrema
+// row ext (-1: the column has none)
+template <typename T>
+__device__ __forceinline__ void store_column(const Args<T>& a, int m, int tile, uint32_t slot,
+                                             int col, double a1, double a2, int ext, int32_t lo,
+                                             int32_t hi) {
+  a.sums[rec(a, m, col, 2 * a.c, slot, tile)] = a1;
+  a.sums[rec(a, m, a.c + col, 2 * a.c, slot, tile)] = a2;
+  if (ext >= 0) {
+    a.ext[rec(a, m, 2 * ext, 2 * a.e, slot, tile)] = lo;
+    a.ext[rec(a, m, 2 * ext + 1, 2 * a.e, slot, tile)] = hi;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_counts(const Args<T>& a, int m, int tile, uint32_t slot,
+                                             int n_ok, int n_kept) {
+  a.keepc[rec(a, m, 0, 1, slot, tile)] = n_kept;
+  a.popc[rec(a, m, 0, 1, slot, tile)] = n_ok;
+}
+
+// Partial records of a slot's run: ok and kept counts, or one column's
+// kept sums (in double) and extrema (ordered images).
+struct Counts {
+  int ok = 0, kept = 0;
+  __device__ __forceinline__ void merge(const Counts& o) {
+    ok += o.ok;
+    kept += o.kept;
+  }
+};
+
+struct Moments {
+  double a1 = 0.0, a2 = 0.0;
+  int32_t lo = kOrderedPosInf, hi = kOrderedNegInf;
+  __device__ __forceinline__ void merge(const Moments& o) {
+    a1 += o.a1;
+    a2 += o.a2;
+    lo = min(lo, o.lo);
+    hi = max(hi, o.hi);
+  }
+};
+
+// Segmented reduction of the sorted tile by slot, in a fixed order.  Thread
+// t folds its ITEMS consecutive sorted positions with add(acc, p); a run
+// that starts and ends inside them is emitted at once, the part before the
+// thread's first run start is published as its head, and the owner of a run
+// that leaves its range adds the heads of the threads it covers, in order.
+template <class Acc, class Add, class Emit>
+__device__ __forceinline__ void reduce_runs(const uint32_t* key, uint32_t none_slot, Acc* heads,
+                                            bool* has_start, Add add, Emit emit) {
+  const int t = threadIdx.x, p0 = t * ITEMS;
+  Acc head, cur;
+  bool started = false;
+  uint32_t slot = key[p0] >> 1;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int p = p0 + j;
+    const uint32_t sp = key[p] >> 1;
+    if (p == 0 || sp != (key[p - 1] >> 1)) {
+      if (started) {
+        if (slot != none_slot) emit(slot, cur);
+      } else {
+        head = cur;
+      }
+      started = true;
+      cur = Acc();
+      slot = sp;
+    }
+    add(cur, p);
+  }
+  if (!started) head = cur;
+  heads[t] = head;
+  has_start[t] = started;
+  __syncthreads();
+  if (started && slot != none_slot) {
+    for (int u = t + 1; u < TILE_THREADS && (key[u * ITEMS] >> 1) == slot; ++u) {
+      cur.merge(heads[u]);
+      if (has_start[u]) break;
+    }
+    emit(slot, cur);
+  }
+  __syncthreads();  // heads are reused by the next reduction
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_THREADS, 1) tile_kernel(Args<T> a) {
+  // dynamic: [threshold row | code table], later one staged value column,
+  // then the sort's scratch, later the sorted keys and positions
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) unsigned char heads_raw[sizeof(Moments) * TILE_THREADS];
+  __shared__ bool has_start[TILE_THREADS];
+  Moments* const heads = reinterpret_cast<Moments*>(heads_raw);
+  const int m = blockIdx.y, tile = blockIdx.x;
+  const int64_t i0 = (int64_t)tile * a.per;
+  const int count = (int)max((int64_t)0, min((int64_t)a.per, a.n - i0));  // this tile's tuples
   const float* thr = a.thr + (int64_t)m * a.s;
   const int32_t* codes = a.codes;
   if (a.use_smem) {
     float* thr_sh = reinterpret_cast<float*>(smem);
-    for (int j = threadIdx.x; j < a.s; j += blockDim.x) thr_sh[j] = thr[j];
+    for (int j = threadIdx.x; j < a.s; j += TILE_THREADS) thr_sh[j] = thr[j];
     thr = thr_sh;
     if (codes != nullptr) {
-      int32_t* codes_sh = smem + a.s;
-      for (int j = threadIdx.x; j < a.num_codes; j += blockDim.x) codes_sh[j] = a.codes[j];
+      int32_t* codes_sh = reinterpret_cast<int32_t*>(smem + sizeof(float) * a.s);
+      for (int j = threadIdx.x; j < a.num_codes; j += TILE_THREADS) codes_sh[j] = a.codes[j];
       codes = codes_sh;
     }
     __syncthreads();
   }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-    int slot;
+  float* const column = reinterpret_cast<float*>(smem);  // after the sort
+  TileSmem& sh = *reinterpret_cast<TileSmem*>(smem + a.front_bytes);
+
+  // resolve, threshold, key.  Tuples load striped (coalesced), and a key's
+  // tuples keep that order through the stable sort.  The code table search
+  // runs a fixed number of steps for all of a thread's tuples at once.
+  const uint32_t none = 2u * (uint32_t)a.s;  // sorts after every slot's keys
+  uint32_t keys[ITEMS];
+  uint16_t pos[ITEMS];
+  int slot[ITEMS];
+  float score[ITEMS];
+  uint32_t ok_bits = 0u;
+  // every load first (independent, so they overlap), then the arithmetic
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int local = j * TILE_THREADS + threadIdx.x;
+    const int64_t i = min(i0 + local, a.n - 1);  // past the tile: any tuple, not used
+    pos[j] = (uint16_t)local;
+    if (local < count && a.ok[m * a.ok_ms + i] != 0) ok_bits |= 1u << j;
+    score[j] = a.scores[m * a.sc_ms + i];
     if (a.sidx != nullptr) {
       const int32_t v = a.sidx[m * a.sidx_ms + i];
-      slot = v < 0 ? 0 : (v > a.s ? a.s : v);
-    } else {
-      const int32_t code = geohash_dev::encode(a.lat[i], a.lon[i], a.geo);
-      int lo = 0, hi = a.num_codes;  // lower bound
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (codes[mid] < code) lo = mid + 1; else hi = mid;
-      }
-      slot = (lo < a.num_codes && codes[lo] == code) ? lo : a.s;
+      slot[j] = v < 0 ? 0 : (v > a.s ? a.s : v);
     }
-    const bool ok = a.ok[m * a.ok_ms + i] != 0;
-    const bool keep = ok && slot < a.s && a.scores[m * a.sc_ms + i] < thr[slot];
-    const int64_t t = (int64_t)m * a.n + i;
-    a.key[t] = m * (a.s + 1) + slot;
-    a.kept[t] = keep ? 1 : 0;
-    if (slot >= a.s) continue;
-    const int64_t ms = (int64_t)m * a.s + slot;
-    if (ok) atomicAdd(&a.pop[ms], 1);
-    if (!keep) continue;
-    atomicAdd(&a.keep[ms], 1);
-    int e = 0, k = 0;
-    for (int col = 0; col < a.c; ++col) {
-      const uint32_t bit = 1u << col;
-      if (!((a.ext_mask | a.sk_mask) & bit)) continue;
-      const float y = widen(a.vals[(int64_t)col * a.n + i]);
-      if (a.ext_mask & bit) {
-        const int64_t at = ((int64_t)m * a.e + e) * a.s + slot;
-        const int32_t o = ordered(__float_as_int(y));
-        atomicMin(&a.mins[at], o);
-        atomicMax(&a.maxs[at], o);
-        ++e;
-      }
-      if (a.sk_mask & bit) {
-        atomicAdd(&a.bins[(((int64_t)m * a.k + k) * a.s + slot) * kNumBins + sketch_bin(y)], 1);
-        ++k;
+  }
+  if (a.sidx == nullptr) {
+    int32_t code[ITEMS];
+    int lo[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int64_t i = min(i0 + (int64_t)pos[j], a.n - 1);
+      code[j] = geohash_dev::encode(a.lat[i], a.lon[i], a.geo);
+      lo[j] = 0;
+    }
+    int step = 1;
+    while (step * 2 <= a.num_codes) step *= 2;
+    for (; step > 0; step >>= 1) {  // lo: the entries below code, its lower bound
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j)
+        if (lo[j] + step <= a.num_codes && codes[lo[j] + step - 1] < code[j]) lo[j] += step;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      slot[j] = (lo[j] < a.num_codes && codes[lo[j]] == code[j]) ? lo[j] : a.s;
+  }
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    keys[j] = none;
+    if (((ok_bits >> j) & 1u) != 0u && slot[j] < a.s)
+      keys[j] = 2u * (uint32_t)slot[j] + (score[j] < thr[slot[j]] ? 0u : 1u);
+  }
+  Sort(sh.sort).Sort(keys, pos, 0, a.key_bits);
+  __syncthreads();  // the sort's scratch becomes the run arrays
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    sh.run.key[threadIdx.x * ITEMS + j] = keys[j];
+    sh.run.pos[threadIdx.x * ITEMS + j] = pos[j];
+  }
+  __syncthreads();
+
+  const uint32_t* key = sh.run.key;
+  const uint32_t none_slot = (uint32_t)a.s;
+  reduce_runs(
+      key, none_slot, reinterpret_cast<Counts*>(heads), has_start,
+      [&](Counts& acc, int p) {
+        acc.ok += 1;
+        acc.kept += (key[p] & 1u) == 0u;
+      },
+      [&](uint32_t s, const Counts& acc) { store_counts(a, m, tile, s, acc.ok, acc.kept); });
+
+  // each value column in turn, staged in shared memory (coalesced), over
+  // the table that resolve no longer needs
+  const int lane = threadIdx.x & 31;
+  int ei = 0, ki = 0;
+  for (int col = 0; col < a.c; ++col) {
+    const uint32_t bit = 1u << col;
+    const bool has_ext = (a.ext_mask & bit) != 0u, has_sk = (a.sk_mask & bit) != 0u;
+    const T* v = a.vals + (int64_t)col * a.n + i0;
+    for (int j = threadIdx.x; j < count; j += TILE_THREADS) column[j] = widen(v[j]);
+    __syncthreads();
+    if (has_sk) {
+      // kept tuples' bins, one atomic per distinct (slot, bin) among the
+      // warp's lanes at each step (a warp's positions are mostly one slot)
+      int32_t* bins = a.bins + ((int64_t)m * a.k + ki) * a.s * kNumBins;
+#pragma unroll 4
+      for (int j = 0; j < ITEMS; ++j) {
+        const int p = threadIdx.x * ITEMS + j;
+        const bool kept = key[p] < none && (key[p] & 1u) == 0u;
+        const uint32_t active = __ballot_sync(0xffffffffu, kept);
+        if (kept) {
+          const int64_t at = (int64_t)(key[p] >> 1) * kNumBins + sketch_bin(column[sh.run.pos[p]]);
+          const uint32_t peers = __match_any_sync(active, at);
+          if (lane == __ffs(peers) - 1) atomicAdd(&bins[at], __popc(peers));
+        }
       }
     }
+    reduce_runs(
+        key, none_slot, heads, has_start,
+        [&](Moments& acc, int p) {
+          if ((key[p] & 1u) != 0u) return;  // not kept
+          const float y = column[sh.run.pos[p]];
+          acc.a1 += (double)y;
+          acc.a2 += (double)__fmul_rn(y, y);
+          const int32_t o = ordered(__float_as_int(y));
+          acc.lo = min(acc.lo, o);
+          acc.hi = max(acc.hi, o);
+        },
+        [&](uint32_t s, const Moments& acc) {
+          store_column(a, m, tile, s, col, acc.a1, acc.a2, has_ext ? ei : -1, acc.lo, acc.hi);
+        });
+    ei += has_ext;
+    ki += has_sk;
+  }
+}
+
+// one warp per (member, slot): the records over the tiles in tile order
+template <typename T>
+__global__ void __launch_bounds__(FINISH_THREADS) finish_kernel(Args<T> a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t w = (int64_t)blockIdx.x * (FINISH_THREADS / 32) + (threadIdx.x >> 5);
+  if (w >= (int64_t)a.m * a.s) return;  // warp-uniform
+  const int m = (int)(w / a.s), slot = (int)(w % a.s);
+  const int rows = 2 * a.c;
+  const int32_t* popc = a.popc + rec(a, m, 0, 1, slot, 0);
+  int n_ok = 0, n_kept = 0;
+  for (int t = lane; t < a.tiles; t += 32) {
+    if (popc[t] != 0) {
+      n_ok += popc[t];
+      n_kept += a.keepc[rec(a, m, 0, 1, slot, t)];
+    }
+  }
+  n_ok = warp_sum(n_ok);
+  n_kept = warp_sum(n_kept);
+  for (int r = 0; r < rows; ++r) {
+    double acc = 0.0;
+    const double* sums = a.sums + rec(a, m, r, rows, slot, 0);
+    for (int t = lane; t < a.tiles; t += 32)
+      if (popc[t] != 0) acc += sums[t];
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      float* out = r < a.c ? a.s1 : a.s2;
+      out[((int64_t)m * a.c + (r % a.c)) * a.s + slot] = (float)acc;
+    }
+  }
+  for (int e = 0; e < a.e; ++e) {
+    int32_t lo = kOrderedPosInf, hi = kOrderedNegInf;
+    const int32_t* elo = a.ext + rec(a, m, 2 * e, 2 * a.e, slot, 0);
+    const int32_t* ehi = a.ext + rec(a, m, 2 * e + 1, 2 * a.e, slot, 0);
+    for (int t = lane; t < a.tiles; t += 32) {
+      if (popc[t] != 0) {
+        lo = min(lo, elo[t]);
+        hi = max(hi, ehi[t]);
+      }
+    }
+    lo = warp_min(lo);
+    hi = warp_max(hi);
+    if (lane == 0) {
+      a.mins[((int64_t)m * a.e + e) * a.s + slot] = __int_as_float(ordered(lo));
+      a.maxs[((int64_t)m * a.e + e) * a.s + slot] = __int_as_float(ordered(hi));
+    }
+  }
+  if (lane == 0) {
+    a.pop[(int64_t)m * a.s + slot] = (float)n_ok;
+    a.keep[(int64_t)m * a.s + slot] = (float)n_kept;
+  }
+  for (int kk = 0; kk < a.k; ++kk) {
+    int32_t* row = a.bins + (((int64_t)m * a.k + kk) * a.s + slot) * kNumBins;
+    for (int b = lane; b < kNumBins; b += 32) row[b] = __float_as_int((float)row[b]);
   }
 }
 
 template <typename T>
-int launch_resolve(ResolveArgs<T> a, int m, int threads, int max_blocks, cudaStream_t stream) {
-  const size_t bytes = sizeof(int32_t) * ((size_t)a.s + (a.codes != nullptr ? a.num_codes : 0));
+int launch(Args<T> a, cudaStream_t stream) {
+  const size_t table =
+      sizeof(float) * a.s + (a.codes != nullptr ? sizeof(int32_t) * a.num_codes : 0);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  a.use_smem = bytes <= (size_t)optin;
-  const size_t smem = a.use_smem ? bytes : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(resolve_kernel<T>,
+  const size_t column = sizeof(float) * TILE;
+  const size_t with_table = ((table > column ? table : column) + 15) & ~(size_t)15;
+  a.use_smem = with_table + sizeof(TileSmem) <= (size_t)optin;
+  a.front_bytes = (int)(a.use_smem ? with_table : column);
+  const size_t smem = a.front_bytes + sizeof(TileSmem);
+  if (a.tiles > 0) {
+    cudaError_t err = cudaFuncSetAttribute(tile_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    tile_kernel<T><<<dim3((unsigned)a.tiles, (unsigned)a.m), TILE_THREADS, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  int64_t blocks = (a.n + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  resolve_kernel<T><<<dim3((unsigned)blocks, (unsigned)m), threads, smem, stream>>>(a);
+  const int64_t warps = (int64_t)a.m * a.s;
+  const int per_block = FINISH_THREADS / 32;
+  finish_kernel<T><<<(unsigned)((warps + per_block - 1) / per_block), FINISH_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// s1/s2 source: weight kept[p], value vals[col, p - m * N] for segment
-// m * (S + 1) + slot
-template <typename T>
-struct KeptColumns {
-  const T* vals;
-  const uint8_t* kept;
-  int64_t n;
-  int s1_slots;  // S + 1
-  int cols;
-  __device__ __forceinline__ float weight(int, int32_t p) const { return kept[p] ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float value(int seg, int32_t p, int col) const {
-    const int64_t member = seg / s1_slots;
-    return widen(vals[(int64_t)col * n + (p - member * n)]);
-  }
-};
-
-// rows 0..C-1 -> s1[m, c, slot], rows C..2C-1 -> s2[m, c, slot]; the
-// no-slot segment of each member is dropped
-struct StoreMoments {
-  float* s1;
-  float* s2;
-  int c, s;
-  __device__ __forceinline__ void operator()(int seg, int r, float v) const {
-    const int m = seg / (s + 1), slot = seg % (s + 1);
-    if (slot == s) return;
-    if (r < c) s1[((int64_t)m * c + r) * s + slot] = v;
-    else s2[((int64_t)m * c + (r - c)) * s + slot] = v;
-  }
-};
-
-// integer counts -> f32 and ordered extrema images -> f32, in place
-__global__ void to_float_kernel(int32_t* __restrict__ counts, int64_t n_counts,
-                                int32_t* __restrict__ ext, int64_t n_ext) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_counts + n_ext;
-       i += stride) {
-    if (i < n_counts) {
-      counts[i] = __float_as_int((float)counts[i]);
-    } else {
-      ext[i - n_counts] = ordered(ext[i - n_counts]);
-    }
-  }
 }
 
 }  // namespace
 
-extern "C" int edge_megakernel_resolve_launch(
+// Both kernels on `stream`: `tiles` tiles of `per` <= TILE tuples cover the
+// window (the wrapper spreads them over whole waves of the SMs); popc and
+// bins zeroed by the caller; keepc, ext, sums and the outputs need no
+// initial value.
+extern "C" int edge_megakernel_launch(
     const void* vals, int vals_bf16, int c, int64_t n, int m, const uint8_t* ok, int64_t ok_ms,
     const float* scores, int64_t sc_ms, const float* thr, int s, const int32_t* sidx,
     int64_t sidx_ms, const float* lat, const float* lon, const int32_t* codes, int num_codes,
     float lat_scale, float lon_scale, int lat_bits, int lon_bits, int lon_high,
-    int ext_mask, int sk_mask, int e, int k, int32_t* counts, int32_t* ext, int32_t* key,
-    uint8_t* kept, int threads, int max_blocks, void* stream) {
-  const int64_t ms = (int64_t)m * s;
+    int ext_mask, int sk_mask, int e, int k, int tiles, int per, int32_t* popc, int32_t* keepc,
+    int32_t* ext, double* sums, int32_t* bins, float* pop, float* keep, float* s1, float* s2,
+    float* mins, float* maxs, void* stream) {
+  if (tiles < 0 || per < 0 || per > TILE || (int64_t)tiles * per < n || s < 1 || m < 1)
+    return (int)cudaErrorInvalidValue;
+  int key_bits = 1;
+  while (key_bits < 32 && (1ll << key_bits) <= 2ll * s) ++key_bits;  // 2 s fits: the "none" key
   const geohash_dev::Params geo{lat_scale, lon_scale, lat_bits, lon_bits, lon_high};
   cudaStream_t st = (cudaStream_t)stream;
   if (vals_bf16) {
-    ResolveArgs<__nv_bfloat16> a{
-        static_cast<const __nv_bfloat16*>(vals), ok, scores, thr, sidx, lat, lon, codes,
-        ok_ms, sc_ms, sidx_ms, n, c, s, num_codes, geo, (uint32_t)ext_mask, (uint32_t)sk_mask,
-        e, k, 0, counts, counts + ms, counts + 2 * ms, ext, ext + ms * e, key, kept};
-    return launch_resolve(a, m, threads, max_blocks, st);
+    Args<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(vals), ok, scores, thr, sidx, lat,
+                          lon, codes, ok_ms, sc_ms, sidx_ms, n, c, s, num_codes, m, geo,
+                          (uint32_t)ext_mask, (uint32_t)sk_mask, e, k, 0, key_bits, tiles, per, 0, popc,
+                          keepc, ext, sums, bins, pop, keep, s1, s2, mins, maxs};
+    return launch(a, st);
   }
-  ResolveArgs<float> a{
-      static_cast<const float*>(vals), ok, scores, thr, sidx, lat, lon, codes,
-      ok_ms, sc_ms, sidx_ms, n, c, s, num_codes, geo, (uint32_t)ext_mask, (uint32_t)sk_mask,
-      e, k, 0, counts, counts + ms, counts + 2 * ms, ext, ext + ms * e, key, kept};
-  return launch_resolve(a, m, threads, max_blocks, st);
+  Args<float> a{static_cast<const float*>(vals), ok, scores, thr, sidx, lat, lon, codes, ok_ms,
+                sc_ms, sidx_ms, n, c, s, num_codes, m, geo, (uint32_t)ext_mask,
+                (uint32_t)sk_mask, e, k, 0, key_bits, tiles, per, 0, popc, keepc, ext, sums, bins,
+                pop, keep, s1, s2, mins, maxs};
+  return launch(a, st);
 }
 
-extern "C" int edge_megakernel_reduce_launch(
-    const int32_t* perm, const int32_t* offsets, const int32_t* chunk_off, int chunk,
-    int max_items, const void* vals, int vals_bf16, int c, int64_t n, int m, int s,
-    const uint8_t* kept, double* partial, float* s1, float* s2, int32_t* counts,
-    int64_t n_counts, int32_t* ext, int64_t n_ext, int threads, int max_blocks, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int segs = m * (s + 1);
-  const StoreMoments store{s1, s2, c, s};
-  int err;
-  if (vals_bf16) {
-    const KeptColumns<__nv_bfloat16> src{static_cast<const __nv_bfloat16*>(vals), kept, n, s + 1, c};
-    err = segsum::launch(perm, offsets, chunk_off, segs, chunk, max_items, 0, src, partial,
-                         store, threads, st);
-  } else {
-    const KeptColumns<float> src{static_cast<const float*>(vals), kept, n, s + 1, c};
-    err = segsum::launch(perm, offsets, chunk_off, segs, chunk, max_items, 0, src, partial,
-                         store, threads, st);
-  }
-  if (err != 0) return err;
-  const int64_t total = n_counts + n_ext;
-  if (total > 0) {
-    int64_t blocks = (total + threads - 1) / threads;
-    if (blocks > max_blocks) blocks = max_blocks;
-    to_float_kernel<<<(unsigned)blocks, threads, 0, st>>>(counts, n_counts, ext, n_ext);
-  }
-  return (int)cudaGetLastError();
-}

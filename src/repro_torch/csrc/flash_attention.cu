@@ -11,33 +11,53 @@
 //
 // Bound on an H100: at the serving shape (B 4, S 1024, 16 heads, DH 64,
 // bf16) q, k, v and o are 34 MB, 10 us at the memory rate, and the causal
-// products 8.6 GFLOP, 8.7 us at the bf16 tensor-core rate.  bf16 inputs take
-// the tensor cores through mma.sync (m16n8k16, f32 accumulate); P . V runs
-// as two products, P's bf16 high part and its bf16 remainder, so P keeps
-// about 16 bits where the TPU kernel keeps it in f32.  f32 inputs stay on
-// the CUDA cores in full f32 (no TF32), 4 x 4 scores per thread from
-// shared-memory tiles.  wgmma, TMA and warp specialisation are later work.
+// products 8.6 GFLOP, 8.7 us at the bf16 tensor-core rate.
+//
+// bf16 path (Hopper only: wgmma, TMA, warp specialisation).  A block is one
+// consumer warpgroup (4 warps x 16 query rows) and one producer warp.  The
+// producer's elected lane loads the query tile once and the key and value
+// tiles into a ring of two stages with TMA (cp.async.bulk.tensor through
+// tensor maps the host encodes per call), each stage guarded by a "full"
+// and an "empty" mbarrier; the consumers compute S = Q . K^T with wgmma from
+// shared memory, keep the online softmax of their rows in registers, and add
+// P . V with wgmma taking P from registers.  Overlap comes from the three or
+// four blocks an SM holds; two consumer warpgroups sharing a key tile, a
+// third stage, and issuing the next tile's S during this tile's softmax
+// were each slower at the serving shape.  Tiles land in shared memory in
+// the hardware's swizzled layout (128-byte rows of 64 head-dim values; 32-
+// and 64-byte rows for head dims 16 and 32; head dims above 64 in boxes of
+// 64 columns, so 112 reads a zero-filled 128), which the wgmma descriptors
+// name.  P is rounded to bf16 once before P . V, as the plain version
+// (models.layers.chunked_causal_attention) and SDPA round it: one P . V
+// product per tile, within the reference kernel test's 2e-2 of the plain
+// version.
+//
+// f32 path (unchanged): the CUDA cores in full f32 (no TF32; wgmma has no
+// f32 mode), 4 x 4 scores per thread from shared-memory tiles.
 //
 // Design, both paths:
 //  * one block per (query tile of 64 rows, b * h), the tiles with the most
 //    keys launched first; key tiles wholly above the diagonal are skipped;
 //  * q, k, v are read in place through their strides (the (B, S, H, DH)
 //    layout, no transposes), and query head h reads key/value head h / G
-//    directly (no repetition); on bf16, k and v are copied in 16-byte
-//    pieces, so their strides are multiples of 8 and their data 16-byte
-//    aligned (the wrapper checks);
-//  * S need not be a multiple of the tile: rows and keys past S load as 0,
-//    keys past S are masked and rows past S are not written;
-//  * DH is a template parameter, unpadded: 64 and 128 (qwen1.5, internlm2),
-//    112 (zamba2) and the smoke configs' 16 and 32;
+//    directly (no repetition); on bf16 the tensor maps need 16-byte aligned
+//    data and strides that are multiples of 8 elements (the wrapper checks);
+//  * S need not be a multiple of the tile: rows and keys past S load as 0
+//    (on bf16 TMA fills them), keys past S are masked and rows past S are
+//    not written;
+//  * DH is a template parameter: 64 and 128 (qwen1.5, internlm2), 112
+//    (zamba2) and the smoke configs' 16 and 32;
 //  * the running (max, normalizer) and the output rows live in registers,
 //    masked logits are -1e30 and the normalizer is clamped at 1e-30, as in
 //    the TPU kernel;
 //  * no atomics: every sum has a fixed order, so two runs are bitwise equal.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,7 +66,9 @@ constexpr int BK = 64;          // keys per shared-memory tile
 constexpr int THREADS = 256;    // f32 path: 16 row groups x 16 column lanes
 constexpr int RPT = BQ / 16;    // f32 path: query rows per thread
 constexpr int CPT = BK / 16;    // f32 path: key columns per thread
-constexpr int MMA_THREADS = 128;  // bf16 path: 4 warps of 16 query rows
+constexpr int WG = 128;         // bf16 path: one consumer warpgroup, 4 warps x 16 rows
+constexpr int TMA_THREADS = WG + 32;  // bf16 path: and one producer warp
+constexpr int STAGES = 2;       // bf16 path: key/value stages in the ring
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -202,194 +224,157 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params a) {
   }
 }
 
+
 // bf16 path ---------------------------------------------------------------
 //
-// Warp w owns query rows q0 + 16 w .. + 15; in the m16n8k16 fragments lane
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8 and columns 2t, 2t + 1
-// (+ 8).  Q stays in registers as A fragments.  The key and value tiles are
-// copied row for row (row = key) into shared memory with 16-byte cp.async,
-// double-buffered: the next tile's copy runs while this tile is computed.
-// Rows are padded by 8 elements so that the fragment loads of a warp hit
-// distinct banks; V's B fragments come transposed out of shared memory
-// through ldmatrix.  The scores' C fragments become P . V's A fragments in
-// place.
+// Shared memory: the query tile, then STAGES x (key tile, value tile), each
+// 64 rows (queries or keys) of ATOMS boxes of COLS head-dim columns; a box is
+// 64 rows of ROW_BYTES, swizzled by TMA in groups of 8 rows.  In the wgmma
+// fragments lane (g = lane / 4, t = lane % 4) of warp w holds rows 16 w + g
+// and + 8, columns 8 j + 2 t and + 1 of every 8-column block j.
 
 template <int DH>
-struct MmaSmem {
-  static constexpr int RS = DH + 8;                 // row stride of a tile
-  static constexpr int TILE = BK * RS;              // elements of one tile
-  // two buffers, each a key tile then a value tile
-  static constexpr int bytes = 2 * 2 * TILE * (int)sizeof(__nv_bfloat16);
+struct TmaTile {
+  static constexpr int COLS = DH < 64 ? DH : 64;          // head-dim columns of a box
+  static constexpr int ROW_BYTES = COLS * 2;              // 32, 64 or 128: the swizzle span
+  static constexpr int ATOMS = (DH + COLS - 1) / COLS;    // boxes across the head dim
+  static constexpr int SWIZZLE = ROW_BYTES == 128 ? 1 : (ROW_BYTES == 64 ? 2 : 3);
+  static constexpr int GROUP_BYTES = 8 * ROW_BYTES;       // one 8-row swizzle group
+  static constexpr int ATOM_BYTES = 64 * ROW_BYTES;       // one box of 64 rows
+  static constexpr int TILE_BYTES = ATOMS * ATOM_BYTES;   // a 64-row tile
+  static constexpr int STEPS_PER_ATOM = ROW_BYTES / 32;   // k-steps of 16 values in a box
+  // + 1 KB to align the tiles to the 128-byte swizzle's 1 KB period
+  static constexpr int bytes = 1024 + (1 + 2 * STAGES) * TILE_BYTES;
 };
 
-// 16 bytes from global to shared memory, asynchronously; zeros when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(addr), "l"(src), "r"(in ? 16 : 0));
-}
-
-// start copying key tile k0 into sK and value tile k0 into sV
-template <int DH>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* sK, __nv_bfloat16* sV,
-                                           const __nv_bfloat16* kp, const __nv_bfloat16* vp,
-                                           const Params& a, int k0, int tid) {
-  constexpr int VPR = DH / 8;  // 16-byte vectors per row
-  constexpr int RS = MmaSmem<DH>::RS;
-#pragma unroll
-  for (int i = tid; i < BK * VPR; i += MMA_THREADS) {
-    const int c = i / VPR, d = (i - c * VPR) * 8, s = k0 + c;
-    const bool in = s < a.s;
-    const int row = in ? s : 0;  // a valid address even when nothing is read
-    cp_async16(sK + c * RS + d, kp + row * a.kss + d, in);
-    cp_async16(sV + c * RS + d, vp + row * a.vss + d, in);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// b0, b1 of P . V's B fragment (keys 16 kk + 2t .. (+ 8), head-dim column g
-// of an n-tile) from the row-major value tile: two 8 x 8 matrices, their row
-// addresses from lanes 0-15
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const void* row) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two values as one bf16x2 register, the first in the low half
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// q[row][col], q[row][col + 1] of a row below s, else zeros
-__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qp, int64_t qss, int row, int col,
-                                           int s) {
-  if (row >= s) return 0u;
-  const __nv_bfloat16* p = qp + row * qss + col;
-  return pack(p[0], p[1]);
-}
-
-// split an f32 pair into bf16 high parts and bf16 remainders
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 hx = __float2bfloat16(x), hy = __float2bfloat16(y);
-  hi = pack(hx, hy);
-  lo = pack(__float2bfloat16(x - __bfloat162float(hx)), __float2bfloat16(y - __bfloat162float(hy)));
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_bf16(Params a) {
-  using L = MmaSmem<DH>;
-  using T = __nv_bfloat16;
-  constexpr int NT = BK / 8;   // key n-tiles of a tile's scores
-  constexpr int KD = DH / 16;  // head-dim k-steps of Q . K^T
-  constexpr int ND = DH / 8;   // head-dim n-tiles of the output
-  constexpr int KK = BK / 16;  // key k-steps of P . V
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
+__global__ void __launch_bounds__(TMA_THREADS) flash_fwd_bf16(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, Params a) {
+  using L = TmaTile<DH>;
+  using hopper::desc;
+  using hopper::smem_addr;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];  // q_full, full[], empty[]
+  unsigned char* const base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* const q_full = bars;
+  uint64_t* const full = bars + 1;
+  uint64_t* const empty = bars + 1 + STAGES;
 
   const int qt = a.nq - 1 - (int)(blockIdx.x / (unsigned)a.bh);
   const int bh = (int)(blockIdx.x % (unsigned)a.bh);
   const int b = bh / a.h, h = bh % a.h, kh = h / a.g;
   const int q0 = qt * BQ;
-  const T* qp = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.ksb + kh * a.ksh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.vsb + kh * a.vsh;
-  const int64_t orow = (int64_t)a.h * DH;
-  T* op = static_cast<T*>(a.o) + (int64_t)b * a.s * orow + (int64_t)h * DH;
+  const int n_tiles = (min(q0 + BQ, a.s) - 1) / BK + 1;  // key tiles at or left of the diagonal
+  const int tid = threadIdx.x;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's query rows
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], WG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int col = kd * 16 + 2 * t;
-    qf[kd][0] = q_pair(qp, a.qss, row0, col, a.s);
-    qf[kd][1] = q_pair(qp, a.qss, row1, col, a.s);
-    qf[kd][2] = q_pair(qp, a.qss, row0, col + 8, a.s);
-    qf[kd][3] = q_pair(qp, a.qss, row1, col + 8, a.s);
+  if (tid >= WG) {
+    // producer warp: one lane issues every load, up to STAGES tiles ahead
+    if (tid == WG) {
+      hopper::mbar_expect_tx(q_full, L::TILE_BYTES);
+      for (int at = 0; at < L::ATOMS; ++at)
+        hopper::tma_load_4d(base + at * L::ATOM_BYTES, &qmap, q_full, at * L::COLS, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) hopper::mbar_wait(&empty[st], ((j / STAGES) - 1) & 1);
+        unsigned char* const sk = base + (1 + 2 * st) * L::TILE_BYTES;
+        unsigned char* const sv = sk + L::TILE_BYTES;
+        hopper::mbar_expect_tx(&full[st], 2 * L::TILE_BYTES);
+        for (int at = 0; at < L::ATOMS; ++at) {
+          hopper::tma_load_4d(sk + at * L::ATOM_BYTES, &kmap, &full[st], at * L::COLS, kh,
+                              j * BK, b);
+          hopper::tma_load_4d(sv + at * L::ATOM_BYTES, &vmap, &full[st], at * L::COLS, kh,
+                              j * BK, b);
+        }
+      }
+    }
+    return;
   }
 
+  // consumer warpgroup: per key tile, S = Q . K^T (wgmma, both operands
+  // in shared memory), the online softmax in registers, O += P . V (wgmma,
+  // P from registers), then the stage goes back to the producer
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's query rows
+  const float sl2 = a.scale * 1.4426950408889634f;      // logits in the log2 domain
+  const uint32_t q_addr = smem_addr(base);
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
 
-  const int last_row = min(q0 + BQ, a.s) - 1;
-  const int n_tiles = last_row / BK + 1;
-  stage_tile<DH>(smem, smem + L::TILE, kp, vp, a, 0, tid);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    const T* sK = smem + (tile & 1) * 2 * L::TILE;
-    const T* sV = sK + L::TILE;
-    if (tile + 1 < n_tiles) {
-      // the other buffer was consumed by every warp before the barrier
-      // that ended the previous iteration
-      T* next = smem + ((tile + 1) & 1) * 2 * L::TILE;
-      stage_tile<DH>(next, next + L::TILE, kp, vp, a, k0 + BK, tid);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  hopper::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const int k0 = j * BK;
+    const uint32_t k_addr = q_addr + (1 + 2 * st) * L::TILE_BYTES;
+    const uint32_t v_addr = k_addr + L::TILE_BYTES;
+    hopper::mbar_wait(&full[st], (j / STAGES) & 1);
+
+    // S = Q . K^T over the head dim, 16 values a step (both operands K-major)
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    hopper::fence_regs(sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd) {
+      const uint32_t off =
+          (kd / L::STEPS_PER_ATOM) * L::ATOM_BYTES + (kd % L::STEPS_PER_ATOM) * 32;
+      hopper::wgmma_ss_n64(sc, desc(q_addr + off, 16, L::GROUP_BYTES, L::SWIZZLE),
+                           desc(k_addr + off, 16, L::GROUP_BYTES, L::SWIZZLE), kd > 0);
     }
-    __syncthreads();  // this tile has landed for every thread
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
 
-    // scores of rows (row0, row1) x keys k0 + 8 nt + 2t (+1)
-    float sc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
-      const T* kr = sK + (nt * 8 + g) * L::RS + 2 * t;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-        mma_bf16(sc[nt], qf[kd], smem_pair(kr + kd * 16), smem_pair(kr + kd * 16 + 8));
-    }
-
+    // mask and online softmax; a row's 64 keys lie with the 4 lanes of its quad
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = e < 2 ? row0 : row1, col = k0 + nt * 8 + 2 * t + (e & 1);
-        float s = sc[nt][e] * a.scale;
+        float s = sc[4 * nt + e] * sl2;
         if (col > row || col >= a.s) s = NEG_INF;
-        sc[nt][e] = s;
+        sc[4 * nt + e] = s;
       }
-      mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
     }
-    // a row's 64 keys lie with the 4 lanes of its quad
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - n0), alpha1 = expf(m1 - n1);
+    const float alpha0 = exp2f(m0 - n0), alpha1 = exp2f(m1 - n1);
     float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = expf(sc[nt][0] - n0);
-      sc[nt][1] = expf(sc[nt][1] - n0);
-      sc[nt][2] = expf(sc[nt][2] - n1);
-      sc[nt][3] = expf(sc[nt][3] - n1);
-      rs0 += sc[nt][0] + sc[nt][1];
-      rs1 += sc[nt][2] + sc[nt][3];
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      sc[4 * nt] = exp2f(sc[4 * nt] - n0);
+      sc[4 * nt + 1] = exp2f(sc[4 * nt + 1] - n0);
+      sc[4 * nt + 2] = exp2f(sc[4 * nt + 2] - n1);
+      sc[4 * nt + 3] = exp2f(sc[4 * nt + 3] - n1);
+      rs0 += sc[4 * nt] + sc[4 * nt + 1];
+      rs1 += sc[4 * nt + 2] + sc[4 * nt + 3];
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -401,71 +386,133 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_bf16(Params a) {
     m0 = n0;
     m1 = n1;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha0;
-      acc[nd][1] *= alpha0;
-      acc[nd][2] *= alpha1;
-      acc[nd][3] *= alpha1;
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      o[4 * nd] *= alpha0;
+      o[4 * nd + 1] *= alpha0;
+      o[4 * nd + 2] *= alpha1;
+      o[4 * nd + 3] *= alpha1;
     }
 
-    // acc += P . V: keys 16 kk .. + 15 are n-tiles 2 kk and 2 kk + 1 of
-    // the scores, which are exactly the A fragment of that k-step
+    // O += P . V: keys 16 kk .. + 15 are the score blocks 2 kk and 2 kk + 1,
+    // which are exactly the A fragment of that k-step; V is MN-major
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_pair(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-      split_pair(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-      split_pair(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-      split_pair(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
-      const T* vrow = sV + (kk * 16 + (lane & 15)) * L::RS;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + nd * 8);
-        mma_bf16(acc[nd], ph, b0, b1);
-        mma_bf16(acc[nd], pl, b0, b1);
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_f32(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_f32(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_f32(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_f32(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
-    __syncthreads();  // every warp is done with this buffer
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::wgmma_rs<DH>(o, pa[kk], desc(v_addr + kk * 16 * L::ROW_BYTES, L::ATOM_BYTES,
+                                            L::GROUP_BYTES, L::SWIZZLE));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::mbar_arrive(&empty[st]);  // this stage may be loaded again
   }
 
+  const int64_t orow = (int64_t)a.h * DH;  // o is (B, S, H, DH), contiguous
+  __nv_bfloat16* op =
+      static_cast<__nv_bfloat16*>(a.o) + (int64_t)b * a.s * orow + (int64_t)h * DH;
   const float norm0 = fmaxf(l0, 1e-30f), norm1 = fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
+  for (int nd = 0; nd < DH / 8; ++nd) {
     const int col = nd * 8 + 2 * t;
-    if (row0 < a.s) {
-      op[row0 * orow + col] = __float2bfloat16(acc[nd][0] / norm0);
-      op[row0 * orow + col + 1] = __float2bfloat16(acc[nd][1] / norm0);
-    }
-    if (row1 < a.s) {
-      op[row1 * orow + col] = __float2bfloat16(acc[nd][2] / norm1);
-      op[row1 * orow + col + 1] = __float2bfloat16(acc[nd][3] / norm1);
-    }
+    if (row0 < a.s)
+      *reinterpret_cast<uint32_t*>(op + row0 * orow + col) =
+          pack_f32(o[4 * nd] / norm0, o[4 * nd + 1] / norm0);
+    if (row1 < a.s)
+      *reinterpret_cast<uint32_t*>(op + row1 * orow + col) =
+          pack_f32(o[4 * nd + 2] / norm1, o[4 * nd + 3] / norm1);
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int threads, int smem, const Params& a, int blocks,
-           cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<blocks, threads, smem, stream>>>(a);
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query, so that the library links no driver library
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// the tensor map of a (B, S, heads, DH) bf16 tensor read through its element
+// strides, in boxes of 64 rows of one head and COLS head-dim columns
+template <int DH>
+bool encode(CUtensorMap* map, const void* ptr, int b, int s, int heads, int64_t sb, int64_t ss,
+            int64_t sh) {
+  using L = TmaTile<DH>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::COLS, 1, (cuuint32_t)BQ, 1};  // BQ == BK rows
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = L::SWIZZLE == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : L::SWIZZLE == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_bf16(const Params& a, int b, int kv_heads, int blocks, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  if (!encode<DH>(&maps[0], a.q, b, a.s, a.h, a.qsb, a.qss, a.qsh) ||
+      !encode<DH>(&maps[1], a.k, b, a.s, kv_heads, a.ksb, a.kss, a.ksh) ||
+      !encode<DH>(&maps[2], a.v, b, a.s, kv_heads, a.vsb, a.vss, a.vsh))
+    return (int)cudaErrorInvalidValue;
+  const int smem = TmaTile<DH>::bytes;
+  static bool sized = false;  // the attribute is set once for the process
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  flash_fwd_bf16<DH><<<blocks, TMA_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_dh(bool bf16, const Params& a, int blocks, cudaStream_t stream) {
-  if (bf16) return launch(flash_fwd_bf16<DH>, MMA_THREADS, MmaSmem<DH>::bytes, a, blocks, stream);
-  return launch(flash_fwd_f32<DH>, THREADS, Smem<DH>::bytes, a, blocks, stream);
+int launch_dh(bool bf16, const Params& a, int b, int kv_heads, int blocks, cudaStream_t stream) {
+  if (bf16) return launch_bf16<DH>(a, b, kv_heads, blocks, stream);
+  const int smem = Smem<DH>::bytes;
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32<DH>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_f32<DH><<<blocks, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-int dispatch(int dh, bool bf16, const Params& a, int blocks, cudaStream_t stream) {
+int dispatch(int dh, bool bf16, const Params& a, int b, int kv_heads, int blocks,
+             cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch_dh<16>(bf16, a, blocks, stream);
-    case 32: return launch_dh<32>(bf16, a, blocks, stream);
-    case 64: return launch_dh<64>(bf16, a, blocks, stream);
-    case 112: return launch_dh<112>(bf16, a, blocks, stream);
-    case 128: return launch_dh<128>(bf16, a, blocks, stream);
+    case 16: return launch_dh<16>(bf16, a, b, kv_heads, blocks, stream);
+    case 32: return launch_dh<32>(bf16, a, b, kv_heads, blocks, stream);
+    case 64: return launch_dh<64>(bf16, a, b, kv_heads, blocks, stream);
+    case 112: return launch_dh<112>(bf16, a, b, kv_heads, blocks, stream);
+    case 128: return launch_dh<128>(bf16, a, b, kv_heads, blocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -473,7 +520,8 @@ int dispatch(int dh, bool bf16, const Params& a, int blocks, cudaStream_t stream
 }  // namespace
 
 // q, k, v in their (B, S, heads, DH) layouts through element strides (the
-// last dimension contiguous); o (B, S, H, DH) contiguous, in q's type.
+// last dimension contiguous; on bf16 the data 16-byte aligned and the
+// strides multiples of 8); o (B, S, H, DH) contiguous, in q's type.
 // q_block and kv_block must equal the compiled tile (the wrapper passes its
 // launch table, so the two cannot drift apart).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int b,
@@ -490,5 +538,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Params a{q, k, v, o, s, h, h / kv_heads, b * h, nq, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
            scale};
-  return dispatch(dh, bf16 != 0, a, (int)blocks, (cudaStream_t)stream);
+  return dispatch(dh, bf16 != 0, a, b, kv_heads, (int)blocks, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 // Deterministic per-segment moment sums over a stable sort, shared by
-// edge_reduce.cu and edge_megakernel.cu.
+// edge_reduce.cu and stratified_stats.cu.
 //
 // The caller (the Python wrapper, as glue) stable-sorts tuple ids by
 // segment, so segment g owns the contiguous run perm[offsets[g] ..

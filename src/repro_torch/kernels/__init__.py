@@ -9,9 +9,10 @@ kernel:
                 ``PipelineConfig(backend="pallas")``
   edge_megakernel/  one pass that resolves each tuple's slot (sidx, or an
                 in-kernel geohash encode + code-table search), samples it by
-                threshold and emits pop/keep/extrema/sketch rows with
-                integer atomics and the moment sums deterministically,
-                behind ``PipelineConfig(backend="fused")``
+                threshold, sorts tiles of the window by slot in shared
+                memory and emits pop/keep/moments/extrema per tile and slot
+                (reduced over the tiles in order) and the sketch bins with
+                integer atomics, behind ``PipelineConfig(backend="fused")``
   stratified_stats/  per-slot (count, Σy, Σy²) of one masked column (f32 or
                 bf16 values, bool or float mask, out-of-range slots dropped),
                 deterministic like edge_reduce; the public op

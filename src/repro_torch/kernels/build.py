@@ -1,7 +1,10 @@
 """Build, load and count the CUDA kernels of ``src/repro_torch/csrc``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  Libraries go
+library with a plain C interface, loaded with ``ctypes``.  The sources need
+only the CUDA toolkit's own headers (CUB's block radix sort in the edge
+megakernel); flash attention's TMA tensor maps are encoded through the
+runtime's driver entry point query, so no library links the driver.  Libraries go
 into ``_build/<hash>/`` inside the package (listed in ``.gitignore``),
 keyed by a hash of every source and header (``csrc/*.cuh``, shared device
 code) and the compiler flags, so a changed source or header rebuilds and an
@@ -52,13 +55,10 @@ _SIGNATURES = {
         "edge_reduce_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     },
     "edge_megakernel": {
-        "edge_megakernel_resolve_launch": [
+        "edge_megakernel_launch": [
             _P, _I, _I, _L, _I, _P, _L, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I,
-            _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
-        ],
-        "edge_megakernel_reduce_launch": [
-            _P, _P, _P, _I, _I, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _L,
-            _I, _I, _P,
+            _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P,
         ],
     },
     "stratified_stats": {
@@ -100,12 +100,13 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
     return build_dir() / f"lib{name}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
-    out = _library_path(name)
+    out = library_path(name)
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -123,7 +124,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
 
 def build_all(names=KERNELS) -> None:
     """Build every missing kernel library, one nvcc per source in parallel."""
-    todo = [n for n in names if not _library_path(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     started = [(n, *_start(n)) for n in todo]
     errors = []
     for name, proc, tmp, out in started:
@@ -142,7 +143,7 @@ def kernel(name: str, entry: str | None = None):
     entry = entry or next(iter(entries))
     fn = _loaded.get((name, entry))
     if fn is None:
-        path = _library_path(name)
+        path = library_path(name)
         if not path.exists():
             build_all((name,))
         fn = getattr(ctypes.CDLL(str(path)), entry)

@@ -17,7 +17,8 @@ version and the numpy oracle (``ref.py``):
 
 Both implementations count integer rows exactly and sum ``s1``/``s2`` in
 double, rounding to f32 once: the plain version with ``index_add_``, the
-kernel deterministically over a stable sort of (member, slot) keys.  Counts,
+kernel deterministically, over tiles of the window that each sort their
+tuples by slot in shared memory, then over the tiles in order.  Counts,
 extrema and sketch bins agree exactly; sums to within an ulp.
 """
 
@@ -30,14 +31,7 @@ import torch
 from ...core import geohash
 from ...core.estimators import SKETCH_NUM_BINS, sketch_bin_index
 from .. import build
-from ..segments import sorted_runs
-from ..tiling import BLOCKS_PER_SM, SEGMENT_CHUNK, THREADS
-
-# order-preserving int32 images of +inf and -inf: the kernel's extrema
-# identities before the in-place conversion back to f32
-_ORDERED_POS_INF = 0x7F800000
-_ORDERED_NEG_INF = -0x7F800001
-
+from ..tiling import BLOCKS_PER_SM, MEGA_TILE
 
 class MegaResult(NamedTuple):
     """Per-member per-stratum sufficient stats from one fused traversal.
@@ -91,7 +85,7 @@ def edge_megakernel_plain(vals, ok, scores, thresholds, num_slots: int, *, sidx=
     kv = keepf[:, None, :] * v[None]  # (M, C, N)
     rows = torch.cat([okb.to(torch.float32)[:, None], keepf[:, None], kv, kv * v[None]], 1)
     sums = torch.zeros((m * (s + 1), rows.shape[1]), dtype=torch.float64, device=dev)
-    sums.index_add_(0, seg, rows.transpose(1, 2).reshape(m * n, -1).to(torch.float64))
+    sums.index_add_(0, seg, rows.transpose(1, 2).reshape(m * n, rows.shape[1]).to(torch.float64))
     sums = sums.to(torch.float32).reshape(m, s + 1, -1)[:, :s]  # (M, S, R)
     pop, kept_ct = sums[..., 0], sums[..., 1]
     s1 = sums[..., 2 : 2 + c].transpose(1, 2)
@@ -138,6 +132,19 @@ def _column_mask(idx: tuple, c: int, what: str) -> int:
     if list(idx) != sorted(set(idx)) or any(not 0 <= i < c for i in idx) or c > 31:
         raise ValueError(f"{what} must be increasing column positions below C = {c} (C <= 31); got {idx}")
     return sum(1 << i for i in idx)
+
+
+def _mega_tiles(n: int, slots: int) -> tuple[int, int]:
+    """(tiles, tuples per tile) of a window of ``n`` tuples: tiles of at most
+    ``MEGA_TILE``, at least one for each of the card's ``slots`` resident
+    blocks while a tile keeps 1024 tuples, and in whole waves of them, the
+    tuples spread evenly."""
+    if n == 0:
+        return 0, 0
+    tiles = max(-(-n // MEGA_TILE), min(slots, -(-n // 1024)))
+    if tiles > slots:
+        tiles = -(-tiles // slots) * slots
+    return tiles, -(-n // tiles)
 
 
 def edge_megakernel(vals, ok, scores, thresholds, num_slots: int, *, sidx=None, lat=None,
@@ -196,53 +203,38 @@ def edge_megakernel(vals, ok, scores, thresholds, num_slots: int, *, sidx=None, 
         sidx_ms, num_codes = _member_stride("sidx", sidx, m, n, torch.int32), 0
         lat = lon = codes = None  # sidx mode reads no coordinates
 
-    # integer rows count in place and convert to f32 at the end:
-    # [pop (M,S) | keep (M,S) | bins (M,K,S,513)] and [mins | maxs] (M,E,S)
+    # scratch: per-(member, slot, tile) records of the tile pass, read by the
+    # finish pass; popc (a record's presence) and the sketch bins start at
+    # zero, in one fill.  The bins count as int32 and become f32 in place.
     ms = m * s
-    n_counts = 2 * ms + ms * k * SKETCH_NUM_BINS
-    counts = torch.zeros(n_counts, dtype=torch.int32, device=dev)
-    ext = torch.empty(2 * ms * e, dtype=torch.int32, device=dev)
-    ext[: ms * e].fill_(_ORDERED_POS_INF)
-    ext[ms * e :].fill_(_ORDERED_NEG_INF)
-    key = torch.empty(m * n, dtype=torch.int32, device=dev)
-    kept = torch.empty(m * n, dtype=torch.bool, device=dev)
-    threads = THREADS["edge_megakernel"]
-    max_blocks = max(1, BLOCKS_PER_SM["edge_megakernel"] * build.num_sms(dev) // m)
-    stream = build.stream_handle(dev)
+    tiles, per = _mega_tiles(n, BLOCKS_PER_SM["edge_megakernel"] * build.num_sms(dev))
+    n_bins = ms * k * SKETCH_NUM_BINS
+    counts = torch.zeros(n_bins + ms * tiles, dtype=torch.int32, device=dev)
+    keepc = torch.empty(ms * tiles, dtype=torch.int32, device=dev)
+    ext_rec = torch.empty(2 * e * ms * tiles, dtype=torch.int32, device=dev)
+    sums = torch.empty(2 * c * ms * tiles, dtype=torch.float64, device=dev)
+    out = torch.empty(2 * ms * (1 + c + e), dtype=torch.float32, device=dev)
+    pop, keep, s1, s2, mins, maxs = out.split([ms, ms, ms * c, ms * c, ms * e, ms * e])
     bf16 = int(vals.dtype == torch.bfloat16)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = build.kernel("edge_megakernel", "edge_megakernel_resolve_launch")(
+    err = build.kernel("edge_megakernel")(
         vals.data_ptr(), bf16, c, n, m, ok.data_ptr(), ok_ms, scores.data_ptr(), sc_ms,
         thresholds.data_ptr(), s, ptr(sidx), sidx_ms, ptr(lat), ptr(lon), ptr(codes), num_codes,
-        *geo, ext_mask, sk_mask, e, k, counts.data_ptr(), ext.data_ptr(), key.data_ptr(),
-        kept.data_ptr(), threads, max_blocks, stream,
+        *geo, ext_mask, sk_mask, e, k, tiles, per, counts[n_bins:].data_ptr(), keepc.data_ptr(),
+        ext_rec.data_ptr(), sums.data_ptr(), counts.data_ptr(), pop.data_ptr(), keep.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(), mins.data_ptr(), maxs.data_ptr(), build.stream_handle(dev),
     )
-    build.check(err, "edge_megakernel (resolve)")
-    # glue: stable sort of the (member, slot) keys for the fixed-order sums
-    segs = m * (s + 1)
-    perm, offsets, chunk_off, max_items = sorted_runs(key, segs, SEGMENT_CHUNK)
-    partial = torch.empty((max_items, 2 * c), dtype=torch.float64, device=dev)
-    s1 = torch.empty((m, c, s), dtype=torch.float32, device=dev)
-    s2 = torch.empty((m, c, s), dtype=torch.float32, device=dev)
-    err = build.kernel("edge_megakernel", "edge_megakernel_reduce_launch")(
-        perm.data_ptr(), offsets.data_ptr(), chunk_off.data_ptr(), SEGMENT_CHUNK, max_items,
-        vals.data_ptr(), bf16, c, n, m, s, kept.data_ptr(), partial.data_ptr(), s1.data_ptr(),
-        s2.data_ptr(), counts.data_ptr(), n_counts, ext.data_ptr(), ext.shape[0], threads,
-        BLOCKS_PER_SM["edge_megakernel"] * build.num_sms(dev), stream,
-    )
-    build.check(err, "edge_megakernel (reduce)")
+    build.check(err, "edge_megakernel")
     build.LAUNCHES["edge_megakernel"] += 1
-    counts = counts.view(torch.float32)
-    ext = ext.view(torch.float32)
     return MegaResult(
-        pop=counts[:ms].view(m, s),
-        keep=counts[ms : 2 * ms].view(m, s),
-        s1=s1,
-        s2=s2,
-        mins=ext[: ms * e].view(m, e, s),
-        maxs=ext[ms * e :].view(m, e, s),
-        bins=counts[2 * ms :].view(m, k, s, SKETCH_NUM_BINS),
+        pop=pop.view(m, s),
+        keep=keep.view(m, s),
+        s1=s1.view(m, c, s),
+        s2=s2.view(m, c, s),
+        mins=mins.view(m, e, s),
+        maxs=maxs.view(m, e, s),
+        bins=counts[:n_bins].view(torch.float32).view(m, k, s, SKETCH_NUM_BINS),
     )

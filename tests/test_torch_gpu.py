@@ -320,3 +320,89 @@ def test_flash_attention_refuses_unaligned_bf16(cuda):
     kv = torch.zeros((1, 8, 2, 17), dtype=torch.bfloat16, device=cuda)[..., 1:]
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, kv, kv)
+
+
+FLASH_SERVE_SHAPE = (4, 1024, 16, 16, 64)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [FLASH_SERVE_SHAPE, (1, 128, 2, 2, 16),
+                                                  (1, 200, 4, 2, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("strided", [False, True], ids=["packed", "fused_qkv"])
+def test_flash_attention_bf16_wgmma_path(cuda, shape, strided):
+    """The bf16 path (wgmma + TMA) at every listed shape and the serving
+    shape, with q, k, v packed or as head slices of one fused projection
+    (GQA read through strides): within 2e-2 of the plain version, two runs
+    bitwise equal."""
+    B, S, H, K, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + dh + strided)
+    if strided:
+        qkv = torch.randn((B, S, H + 2 * K, dh), generator=gen, device=cuda).to(torch.bfloat16)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H : H + K], qkv[:, :, H + K :]
+    else:
+        q, k, v = (torch.randn((B, S, n, dh), generator=gen, device=cuda).to(torch.bfloat16)
+                   for n in (H, K, K))
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    plain = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), plain.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_refuses_a_q_tma_cannot_take(cuda):
+    kv = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((1, 8, 2, 17), dtype=torch.bfloat16, device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, kv, kv)
+    q = torch.zeros((1, 8, 2 * 16 + 8), dtype=torch.bfloat16, device=cuda)[:, :, 1 : 1 + 32]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q.view(1, 8, 2, 16), kv, kv)
+
+
+@pytest.mark.parametrize("mode", ["sidx", "latlon"])
+def test_edge_megakernel_on_a_window_one_slot_dominates(cuda, mode):
+    """Most tuples in one slot (a tile's run longer than the tile's other
+    runs together), M = 3 members, bf16 staging: counts, extrema and bins
+    exact, sums within the kernel tolerance, two runs bitwise equal."""
+    rng = np.random.default_rng(21)
+    n, m = 250_000, 3
+    table = make_table(*SHENZHEN_BBOX, precision=6, neighborhood_precision=4)
+    s = table.num_slots
+    hot = rng.random(n) < 0.85
+    lat = np.where(hot, 22.5431, rng.uniform(22.40, 22.90, n)).astype(np.float32)
+    lon = np.where(hot, 114.0579, rng.uniform(113.7, 114.7, n)).astype(np.float32)
+    vals = torch.from_numpy(rng.normal(25, 8, (2, n)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    ok = torch.from_numpy(rng.random((m, n)) < 0.9).to(cuda)
+    scores = torch.from_numpy(rng.random((1, n)).astype(np.float32)).to(cuda).expand(m, n)
+    thr = torch.tensor([[0.2], [0.5], [0.8]], device=cuda).expand(m, s).contiguous()
+    if mode == "sidx":
+        sidx = np.where(hot, 4321, rng.integers(0, s + 1, n)).astype(np.int32)
+        where = dict(sidx=torch.from_numpy(sidx).to(cuda)[None].expand(m, n))
+    else:
+        where = dict(lat=torch.from_numpy(lat).to(cuda), lon=torch.from_numpy(lon).to(cuda),
+                     codes=table.codes, precision=6)
+    args = (vals, ok, scores, thr, s)
+    kw = dict(where, ext_idx=(0, 1), sk_idx=(1,))
+    got = edge_megakernel(*args, **kw)
+    again = edge_megakernel(*args, **kw)
+    plain = edge_megakernel_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert float(got.pop.max()) > 0.8 * n * 0.9 * 0.9
+    for name, g, a, p in zip(got._fields, got, again, plain):
+        assert torch.equal(g, a), name
+        if name in ("s1", "s2"):
+            torch.testing.assert_close(g, p, rtol=2e-6, atol=1e-3)
+        else:
+            assert torch.equal(g, p), name
+
+
+def test_edge_megakernel_on_an_empty_window(cuda):
+    s = 11
+    args = (torch.zeros((2, 0), device=cuda), torch.zeros((1, 0), dtype=torch.bool, device=cuda),
+            torch.zeros((1, 0), device=cuda), torch.full((1, s), 0.5, device=cuda), s)
+    kw = dict(sidx=torch.zeros((1, 0), dtype=torch.int32, device=cuda), ext_idx=(0,), sk_idx=(1,))
+    got = edge_megakernel(*args, **kw)
+    for name, g, p in zip(got._fields, got, edge_megakernel_plain(*args, **kw)):
+        assert torch.equal(g, p), name
