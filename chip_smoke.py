@@ -14,13 +14,15 @@ last line is printed:
 2. Kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (the 1.2 M-tuple
    Shenzhen window at Geohash-6), twice, bitwise reproducible.
-   stratified_stats runs on the window's slots and ``value`` column with
-   f32 values and a bool mask (fraction 0.8), with bf16 values, and with a
-   float weight mask and about 1% of the indices set to -1 and past the
-   last slot, and at the reference kernel test's three shapes.  The edge
-   megakernel runs in sidx mode with three members (SRS ranks against three
-   n_k rows), in latlon mode with two members (two ROI masks, two
-   fractions), and in sidx mode once more with bf16 staging.  Flash
+   edge_reduce and stratified_stats also run on the window with about 85%
+   of its tuples moved into its busiest slot (one run fills most of every
+   tile).  stratified_stats runs on the window's slots and ``value``
+   column with f32 values and a bool mask (fraction 0.8), with bf16 values,
+   and with a float weight mask and about 1% of the indices set to -1 and
+   past the last slot, and at the reference kernel test's three shapes.
+   The edge megakernel runs in sidx mode with three members (SRS ranks
+   against three n_k rows), in latlon mode with two members (two ROI masks,
+   two fractions), and in sidx mode once more with bf16 staging.  Flash
    attention runs at the reference kernel test's shapes (MHA, GQA, MQA,
    head_dim 112, ragged S 300) in f32 and bf16 and at the serving prefill's
    shape (B 4, S 1024, 16 heads, head_dim 64, bf16).
@@ -79,11 +81,12 @@ last line is printed:
    one profiled ``execute`` per method and backend and one profiled
    prefill and decode step (device busy time and the heaviest device ops).
    stratified_stats is timed at the window's shape in f32 and bf16, its
-   library call one f32 ``index_add_`` of the stacked rows.  The edge
-   megakernel's device time at ``latlon1`` is split by pass (the profiler's
-   per-kernel times of ten calls, each after an L2 flush).
+   library call one f32 ``index_add_`` of the stacked rows.  The device
+   time of the edge megakernel at ``latlon1``, of edge_reduce on the
+   window's sample and of stratified_stats at its f32 case is split by pass
+   (the profiler's per-kernel times of ten calls, each after an L2 flush).
 
-``python3 chip_smoke.py --split-only DIR`` prints only that split, for the
+``python3 chip_smoke.py --split-only DIR`` prints only those splits, for the
 package in ``DIR/src`` (another checkout, such as the parent commit's), so
 that two trees' splits can come from one card.
 
@@ -110,8 +113,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# ``--split-only DIR``: only the edge megakernel's per-pass split, of the
-# package in DIR/src (another checkout, for an A/B on one card)
+# ``--split-only DIR``: only the per-pass splits of the edge megakernel,
+# edge_reduce and stratified_stats, of the package in DIR/src (another
+# checkout, for an A/B on one card)
 SPLIT_ONLY = len(sys.argv) == 3 and sys.argv[1] == "--split-only"
 sys.path.insert(0, str((Path(sys.argv[2]).resolve() if SPLIT_ONLY else ROOT) / "src"))
 
@@ -524,7 +528,6 @@ def megakernel_bound(args, kw) -> tuple[float, str]:
 
 
 def phase_kernel_checks(x) -> dict:
-    from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
     from repro_torch.kernels.geohash import geohash_encode, geohash_encode_plain
     from repro_torch.kernels.sample_mask import sample_mask, sample_mask_plain
 
@@ -545,16 +548,10 @@ def phase_kernel_checks(x) -> dict:
     err["sample_mask"] = float((w1 - pw).abs().max())
     x["mask"] = m1
 
-    r1 = edge_reduce(x["sidx"], x["values"], m1, x["num_slots"])
-    r2 = edge_reduce(x["sidx"], x["values"], m1, x["num_slots"])
-    rp = edge_reduce_plain(x["sidx"], x["values"], m1, x["num_slots"])
-    torch.cuda.synchronize()
-    check(all(torch.equal(s, t) for s, t in zip(r1, r2)), "edge_reduce: two runs differ")
-    check(torch.equal(r1[0], rp[0]), "edge_reduce: counts differ from the plain version")
-    for got, ref, name in zip(r1[1:], rp[1:], ("s1", "s2")):
-        check(torch.allclose(got, ref, rtol=ER_RTOL, atol=ER_ATOL),
-              f"edge_reduce: {name} beyond rtol={ER_RTOL}, atol={ER_ATOL}")
-    err["edge_reduce"] = max(float((g - r).abs().max()) for g, r in zip(r1, rp))
+    x["skewed_sidx"] = skewed_sidx(x)
+    err["edge_reduce"] = max(check_edge_reduce(label, sidx, x["values"], m1, x["num_slots"])
+                             for label, sidx in (("window", x["sidx"]),
+                                                 ("skewed", x["skewed_sidx"])))
 
     from repro_torch.kernels.edge_megakernel import edge_megakernel, edge_megakernel_plain
 
@@ -578,6 +575,33 @@ def phase_kernel_checks(x) -> dict:
     err["stratified_stats"] = stratified_checks(x)
     err["flash_attention"], err["flash_by_shape"] = flash_checks(x["lat"].device)
     return err
+
+
+def skewed_sidx(x) -> torch.Tensor:
+    """The window's slots with about 85% of the tuples moved into its
+    busiest slot: that slot's run fills most of every tile of the sorted-tile
+    kernels and crosses every thread's range."""
+    sidx = x["sidx"]
+    gen = torch.Generator(device=sidx.device).manual_seed(SEED + 3)
+    hot = torch.rand(sidx.shape[0], generator=gen, device=sidx.device) < 0.85
+    busiest = torch.bincount(sidx, minlength=x["num_slots"]).argmax().to(sidx.dtype)
+    return torch.where(hot, busiest, sidx)
+
+
+def check_edge_reduce(label: str, sidx, values, mask, s: int) -> float:
+    """edge_reduce twice (bitwise equal) against its plain version: counts
+    exact, sums within ER_RTOL / ER_ATOL -> max |kernel - plain|."""
+    from repro_torch.kernels.edge_reduce import edge_reduce, edge_reduce_plain
+
+    r1, r2 = edge_reduce(sidx, values, mask, s), edge_reduce(sidx, values, mask, s)
+    rp = edge_reduce_plain(sidx, values, mask, s)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(r1, r2)), f"edge_reduce {label}: two runs differ")
+    check(torch.equal(r1[0], rp[0]), f"edge_reduce {label}: counts differ from the plain version")
+    for got, ref, name in zip(r1[1:], rp[1:], ("s1", "s2")):
+        check(torch.allclose(got, ref, rtol=ER_RTOL, atol=ER_ATOL),
+              f"edge_reduce {label}: {name} beyond rtol={ER_RTOL}, atol={ER_ATOL}")
+    return max(float((g - r).abs().max()) for g, r in zip(r1, rp))
 
 
 def stratified_cases(x) -> dict:
@@ -626,6 +650,9 @@ def stratified_checks(x) -> float:
     for label, args in cases.items():
         e, first[label] = check_stratified(label, args, s)
         worst = max(worst, e)
+    # the window one slot dominates (not an op-path case)
+    sidx, vals, keep = cases["f32"]
+    worst = max(worst, check_stratified("skewed", (x["skewed_sidx"], vals, keep), s)[0])
     # the out-of-range tuples contribute nothing: the same sums without them
     sidx, vals, w = cases["weights_out_of_range"]
     inside = (sidx >= 0) & (sidx < s)
@@ -1444,51 +1471,63 @@ def phase_times(x, windows, dev, card: str) -> tuple[dict, list]:
                      f"({b_by}), plain {t['plain_ms']:.4f} ms, library (SDPA) "
                      f"{t['library_ms']:.4f} ms")
     times["edge_megakernel"] = times["edge_megakernel/latlon1"]
-    lines.append(megakernel_split(x, card))
-    lines.append(f"[{card}] edge_reduce glue: stable sort of sidx alone "
-                 f"{timer.ms(lambda: torch.sort(x['sidx'], stable=True)):.4f} ms")
+    lines += [kernel_split(label, fn, card) for label, fn in split_calls(x).items()]
     return times, lines + execute_times(windows, dev, card)
 
 
-def megakernel_split(x, card: str, reps: int = 10) -> str:
-    """Device time of each pass of one edge megakernel call at execute's
-    latlon shape (``latlon1``): the mean over ``reps`` profiled calls, each
-    after an L2 flush, of every device kernel the call launches, grouped by
-    pass.  Works on any tree whose wrapper has this signature."""
+def split_calls(x) -> dict:
+    """The calls whose device time ``kernel_split`` splits by pass: the edge
+    megakernel at execute's latlon shape (``latlon1``), edge_reduce on the
+    window's sample and stratified_stats at the op's f32 case.  Works on any
+    tree whose wrappers have these signatures."""
+    from repro_torch.kernels.edge_megakernel import edge_megakernel
+    from repro_torch.kernels.edge_reduce import edge_reduce
+    from repro_torch.kernels.stratified_stats import stratified_stats
+
+    args, kw = megakernel_cases(x)["latlon1"]
+    s = x["num_slots"]
+    strat = stratified_cases(x)["f32"]
+    return {"edge_megakernel/latlon1": lambda: edge_megakernel(*args, **kw),
+            "edge_reduce": lambda: edge_reduce(x["sidx"], x["values"], x["mask"], s),
+            "stratified_stats": lambda: stratified_stats(*strat, s)}
+
+
+def kernel_split(label: str, fn, card: str, reps: int = 10) -> str:
+    """Device time of each pass of one call: the mean over ``reps`` profiled
+    calls, each after an L2 flush, of every device kernel the call launches,
+    grouped by pass.  Kernels the hand-written sources do not name (sorts,
+    scans, elementwise ops of the glue) count as sort glue."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.edge_megakernel import edge_megakernel
-
-    args, kw = megakernel_cases(x)["latlon1"]
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=args[0].device)
-    edge_megakernel(*args, **kw)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             flush.bitwise_not_()  # evicts the inputs; its kernel is left out below
-            edge_megakernel(*args, **kw)
+            fn()
         torch.cuda.synchronize()
     kernels = {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                and "bitwise_not" not in e.key}
 
     def pass_of(name: str) -> str:
-        for label, marks in (("resolve", ("resolve_kernel",)),
-                             ("tile: resolve + sort + records", ("tile_kernel",)),
-                             ("partial + finish sums", ("partial_kernel", "segsum::finish")),
-                             ("finish: sums + bins to f32", ("finish_kernel",)),
-                             ("to_float", ("to_float_kernel",)),
-                             ("zero-fill", ("Fill", "fill"))):
+        for pass_label, marks in (("resolve", ("resolve_kernel",)),
+                                  ("tile: sort + records", ("tile_kernel",)),
+                                  ("partial sums", ("partial_kernel",)),
+                                  ("finish", ("finish_kernel",)),
+                                  ("to_float", ("to_float_kernel",)),
+                                  ("zero-fill", ("Fill", "fill", "Memset"))):
             if any(mark in name for mark in marks):
-                return label
-        return "sort glue (sorted_runs)"
+                return pass_label
+        return "sort glue"
 
     passes: dict[str, float] = {}
     for name, ms in kernels.items():
         passes[pass_of(name)] = passes.get(pass_of(name), 0.0) + ms
-    return (f"[{card}] edge_megakernel/latlon1 per-pass device ms (profiler, mean of {reps} calls "
-            f"after an L2 flush): {json.dumps(passes)}; sum {sum(passes.values()):.4f} ms; "
+    return (f"[{card}] {label} per-pass device ms (profiler, mean of {reps} calls after an L2 "
+            f"flush): {json.dumps(passes)}; sum {sum(passes.values()):.4f} ms; "
             f"kernels: {json.dumps({k[:70]: round(v, 4) for k, v in kernels.items()})}")
 
 
@@ -1605,8 +1644,13 @@ def main() -> int:
     print(f"[phase 1] {len(build.KERNELS)} kernels {list(build.KERNELS)} built in "
           f"{phase_build():.2f} s", flush=True)
     if SPLIT_ONLY:
+        from repro_torch.kernels.sample_mask import sample_mask
+
         table, cols, _ = load_window("shenzhen")
-        print(megakernel_split(kernel_inputs(table, cols, dev), card), flush=True)
+        x = kernel_inputs(table, cols, dev)
+        x["mask"] = sample_mask(x["sidx"], x["u"], x["frac"])[0]  # phase 2's mask
+        for label, fn in split_calls(x).items():
+            print(kernel_split(label, fn, card), flush=True)
         return 0
     print(f"[phase 1] {sass_line()}", flush=True)
 

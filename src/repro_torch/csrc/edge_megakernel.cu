@@ -43,7 +43,9 @@
 //    shared memory one at a time (coalesced, over the table the resolve no
 //    longer needs).  Sketch bins are counted with integer atomics, one per
 //    distinct (slot, bin) among a warp's lanes at each step
-//    (__match_any_sync): sorted, a hot slot fills whole warps.
+//    (__match_any_sync): sorted, a hot slot fills whole warps.  The tile's
+//    sort and segmented reduction are tile_runs.cuh's, shared with
+//    edge_reduce.cu and stratified_stats.cu.
 //  * finish_kernel: one warp per (member, slot) adds the slot's records over
 //    the tiles in tile order (lanes strided, then a fixed shuffle tree),
 //    rounds the sums to f32 once, decodes the extrema, and converts the
@@ -63,18 +65,21 @@
 // index.  No fast-math: the sketch bin index uses IEEE division and logf, as
 // the plain version does.
 
-#include <cub/block/block_radix_sort.cuh>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "geohash.cuh"
+#include "tile_runs.cuh"
 
 namespace {
 
-constexpr int TILE_THREADS = 1024;
-constexpr int ITEMS = 8;                     // tuples a thread sorts
-constexpr int TILE = TILE_THREADS * ITEMS;   // tuples a block sorts, at most
+using tile_runs::ITEMS;
+using tile_runs::TILE;
+using tile_runs::TILE_THREADS;
+using tile_runs::TileSmem;
+using tile_runs::warp_sum;
+
 constexpr int FINISH_THREADS = 256;
 
 // sketch bin layout: the constants of estimators.py
@@ -85,17 +90,6 @@ constexpr float kLogGamma = 0.08f;
 
 constexpr int32_t kOrderedPosInf = 0x7F800000;   // ordered images of +inf, -inf
 constexpr int32_t kOrderedNegInf = -0x7F800001;
-
-using Sort = cub::BlockRadixSort<uint32_t, TILE_THREADS, ITEMS, uint16_t>;
-
-// the tile's sorted keys and tuple positions, over the sort's scratch
-union TileSmem {
-  typename Sort::TempStorage sort;
-  struct {
-    uint32_t key[TILE];
-    uint16_t pos[TILE];
-  } run;
-};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -116,15 +110,7 @@ __device__ __forceinline__ int sketch_bin(float v) {
   return kBinsPerSide;
 }
 
-// fixed butterflies: every lane ends with the same bits on every run
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+// fixed butterflies, like tile_runs::warp_sum
 __device__ __forceinline__ int32_t warp_min(int32_t v) {
   for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
@@ -171,7 +157,7 @@ struct Args {
 template <typename T>
 __device__ __forceinline__ int64_t rec(const Args<T>& a, int m, int row, int rows, int slot,
                                        int tile) {
-  return (((int64_t)m * rows + row) * a.s + slot) * a.tiles + tile;
+  return tile_runs::record((int64_t)m * rows + row, slot, tile, a.s, a.tiles);
 }
 
 // one (tile, slot) record: column col's sums, and its extrema as extrema
@@ -215,48 +201,6 @@ struct Moments {
     hi = max(hi, o.hi);
   }
 };
-
-// Segmented reduction of the sorted tile by slot, in a fixed order.  Thread
-// t folds its ITEMS consecutive sorted positions with add(acc, p); a run
-// that starts and ends inside them is emitted at once, the part before the
-// thread's first run start is published as its head, and the owner of a run
-// that leaves its range adds the heads of the threads it covers, in order.
-template <class Acc, class Add, class Emit>
-__device__ __forceinline__ void reduce_runs(const uint32_t* key, uint32_t none_slot, Acc* heads,
-                                            bool* has_start, Add add, Emit emit) {
-  const int t = threadIdx.x, p0 = t * ITEMS;
-  Acc head, cur;
-  bool started = false;
-  uint32_t slot = key[p0] >> 1;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const int p = p0 + j;
-    const uint32_t sp = key[p] >> 1;
-    if (p == 0 || sp != (key[p - 1] >> 1)) {
-      if (started) {
-        if (slot != none_slot) emit(slot, cur);
-      } else {
-        head = cur;
-      }
-      started = true;
-      cur = Acc();
-      slot = sp;
-    }
-    add(cur, p);
-  }
-  if (!started) head = cur;
-  heads[t] = head;
-  has_start[t] = started;
-  __syncthreads();
-  if (started && slot != none_slot) {
-    for (int u = t + 1; u < TILE_THREADS && (key[u * ITEMS] >> 1) == slot; ++u) {
-      cur.merge(heads[u]);
-      if (has_start[u]) break;
-    }
-    emit(slot, cur);
-  }
-  __syncthreads();  // heads are reused by the next reduction
-}
 
 template <typename T>
 __global__ void __launch_bounds__(TILE_THREADS, 1) tile_kernel(Args<T> a) {
@@ -333,19 +277,13 @@ __global__ void __launch_bounds__(TILE_THREADS, 1) tile_kernel(Args<T> a) {
     if (((ok_bits >> j) & 1u) != 0u && slot[j] < a.s)
       keys[j] = 2u * (uint32_t)slot[j] + (score[j] < thr[slot[j]] ? 0u : 1u);
   }
-  Sort(sh.sort).Sort(keys, pos, 0, a.key_bits);
-  __syncthreads();  // the sort's scratch becomes the run arrays
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    sh.run.key[threadIdx.x * ITEMS + j] = keys[j];
-    sh.run.pos[threadIdx.x * ITEMS + j] = pos[j];
-  }
-  __syncthreads();
+  tile_runs::sort_tile(sh, keys, pos, a.key_bits);
 
   const uint32_t* key = sh.run.key;
   const uint32_t none_slot = (uint32_t)a.s;
-  reduce_runs(
-      key, none_slot, reinterpret_cast<Counts*>(heads), has_start,
+  const auto key_slot = [](uint32_t k) { return k >> 1; };  // key: 2 slot + not kept
+  tile_runs::reduce_runs(
+      key, key_slot, none_slot, reinterpret_cast<Counts*>(heads), has_start,
       [&](Counts& acc, int p) {
         acc.ok += 1;
         acc.kept += (key[p] & 1u) == 0u;
@@ -378,8 +316,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 1) tile_kernel(Args<T> a) {
         }
       }
     }
-    reduce_runs(
-        key, none_slot, heads, has_start,
+    tile_runs::reduce_runs(
+        key, key_slot, none_slot, heads, has_start,
         [&](Moments& acc, int p) {
           if ((key[p] & 1u) != 0u) return;  // not kept
           const float y = column[sh.run.pos[p]];

@@ -6,55 +6,25 @@
 // contracts the stacked rows against a one-hot slot matrix on the MXU.
 //
 // Bound on an H100: memory.  Each tuple reads 4 + 1 + 4·C bytes (13 bytes
-// at C = 2) and the (1 + 2C)·S sums are written once, a few microseconds
-// at the memory rate for the 1.2 M-tuple Geohash-6 window — about one
-// launch.  What shapes the design is determinism and skew, not bandwidth:
-// the sums must be the same bits on every run (sessions and checkpoint
-// replay compare results bit for bit), and real windows are skewed.  The
-// wrapper stable-sorts tuple indices by slot (glue); segment_sum.cuh, shared
-// with the edge megakernel, reduces each slot's run in fixed-order chunks in
-// double and rounds once.
+// at C = 2) and the (1 + 2C)·S sums are written once: 15.7 MB, 4.7 us at
+// 3.35 TB/s for the 1.2 M-tuple Geohash-6 window.  What shapes the design
+// is determinism and skew: the sums must be the same bits on every run
+// (sessions and checkpoint replay compare results bit for bit), and real
+// windows are skewed (the busiest Geohash-6 cells hold ~20 000 tuples).
+// A sort of the whole window by slot would order the sums, at the cost of
+// a global radix sort and scattered gathers; instead each block sorts one
+// tile of the window by slot in shared memory and writes a record per
+// (tile, slot), and a finish pass adds the records over the tiles in order
+// (tile_moments.cuh, over the edge megakernel's tile_runs.cuh).  The 13-bit
+// keys of a tile sort in four radix passes in shared memory, and every
+// global access but the finish's record reads is coalesced.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_moments.cuh"
 
-#include "segment_sum.cuh"
-
-namespace {
-
-// weight m = mask[p], value y = values[col, p]
-struct MaskedColumns {
-  const float* values;
-  const uint8_t* mask;
-  int64_t n;
-  int cols;
-  __device__ __forceinline__ float weight(int, int32_t p) const { return mask[p] ? 1.0f : 0.0f; }
-  __device__ __forceinline__ float value(int, int32_t p, int col) const {
-    return values[(int64_t)col * n + p];
-  }
-};
-
-// row 0 -> count[slot], rows 1..C -> s1[c, slot], rows C+1..2C -> s2[c, slot]
-struct StoreRows {
-  float* count;
-  float* s1;
-  float* s2;
-  int c, s;
-  __device__ __forceinline__ void operator()(int slot, int r, float v) const {
-    if (r == 0) count[slot] = v;
-    else if (r <= c) s1[(int64_t)(r - 1) * s + slot] = v;
-    else s2[(int64_t)(r - 1 - c) * s + slot] = v;
-  }
-};
-
-}  // namespace
-
-extern "C" int edge_reduce_launch(const int32_t* perm, const int32_t* offsets,
-                                  const int32_t* chunk_off, const float* values,
-                                  const uint8_t* mask, int64_t n, int c, int s, int chunk,
-                                  int max_items, double* partial, float* count, float* s1,
-                                  float* s2, int threads, void* stream) {
-  return segsum::launch(perm, offsets, chunk_off, s, chunk, max_items, /*with_count=*/1,
-                        MaskedColumns{values, mask, n, c}, partial,
-                        StoreRows{count, s1, s2, c, s}, threads, (cudaStream_t)stream);
+// values (C, N) f32, mask (N,) bool, stratum_idx (N,) int32
+extern "C" int edge_reduce_launch(const int32_t* sidx, const float* values, const uint8_t* mask,
+                                  int64_t n, int c, int s, int tiles, int per, int32_t* marker,
+                                  double* sums, float* out, void* stream) {
+  return launch_moments<int32_t, float, uint8_t>(sidx, values, mask, n, c, s, tiles, per, marker,
+                                                 sums, out, (cudaStream_t)stream);
 }

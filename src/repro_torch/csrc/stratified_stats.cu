@@ -1,83 +1,59 @@
 // Per-slot moments of one masked column: count[s] = Σ m, s1[s] = Σ m·y,
 // s2[s] = Σ (m·y)·y over the tuples of slot s, with m the mask read as a
 // float (bool or float weights) and y the value read as f32 (f32 or bf16).
+// Indices outside [0, num_slots), the -1 padding included, contribute
+// nothing.
 //
 // Replaces the TPU kernel `stratified_stats_pallas` (body `_stats_kernel`)
 // of src/repro/kernels/stratified_stats/stratified_stats.py, which
 // contracts the rows [m, m·y, m·y·y] against one-hot slot tiles on the MXU.
-// Here it is the single-column case of edge_reduce's deterministic design:
-// the wrapper stable-sorts tuple indices by slot (glue), and
-// segment_sum.cuh reduces each slot's run in fixed-order chunks in double
-// and rounds once.  No float atomics: two runs give the same bits.
-// Indices outside [0, num_slots) (the -1 padding included) are mapped by
-// the wrapper to segment num_slots, which lies past the last run and is
-// never summed.
 //
-// Bound on an H100: memory.  Each tuple reads its index (4 bytes), its
-// value (4, or 2 in bf16) and its mask (1 as bool, 4 as float), and the
-// 3·S sums are written once: at N = 1.2 M, S = 6558 about 11 MB, 3 µs at
-// 3.35 TB/s.  The sort glue dominates, as it does in edge_reduce.
+// Bound on an H100: memory.  Each tuple reads its index (4 bytes, 8 as
+// int64), its value (4, or 2 in bf16) and its mask (1 as bool, 4 as float),
+// and the 3·S sums are written once: at N = 1.2 M, S = 6558 about 11 MB,
+// 3 us at 3.35 TB/s.  It is the single-column case of edge_reduce's design
+// (tile_moments.cuh): no sort of the whole window, but each block sorts a
+// tile by slot in shared memory; an out-of-range index takes the "none" key
+// inside the tile kernel, which sorts last and is never summed, so the
+// indices are read once, in their own dtype.  No float atomics: two runs
+// give the same bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "segment_sum.cuh"
+#include "tile_moments.cuh"
 
 namespace {
 
-__device__ __forceinline__ float as_float(float x) { return x; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float as_float(uint8_t x) { return x ? 1.0f : 0.0f; }
+template <class Idx, class V>
+int by_mask(const void* sidx, const void* values, const void* mask, int mask_float, int64_t n,
+            int s, int tiles, int per, int32_t* marker, double* sums, float* out,
+            cudaStream_t st) {
+  return mask_float
+      ? launch_moments<Idx, V, float>(sidx, values, mask, n, 1, s, tiles, per, marker, sums, out, st)
+      : launch_moments<Idx, V, uint8_t>(sidx, values, mask, n, 1, s, tiles, per, marker, sums, out,
+                                        st);
+}
 
-// weight m = mask[p] as a float, value y = values[p] as a float
-template <class V, class M>
-struct MaskedColumn {
-  const V* values;
-  const M* mask;
-  int cols;  // always 1
-  __device__ __forceinline__ float weight(int, int32_t p) const { return as_float(mask[p]); }
-  __device__ __forceinline__ float value(int, int32_t p, int) const { return as_float(values[p]); }
-};
-
-// row 0 -> count[slot], row 1 -> s1[slot], row 2 -> s2[slot]
-struct StoreMoments {
-  float* count;
-  float* s1;
-  float* s2;
-  __device__ __forceinline__ void operator()(int slot, int r, float v) const {
-    (r == 0 ? count : r == 1 ? s1 : s2)[slot] = v;
-  }
-};
-
-template <class V, class M>
-int run(const int32_t* perm, const int32_t* offsets, const int32_t* chunk_off, const void* values,
-        const void* mask, int s, int chunk, int max_items, double* partial, float* count,
-        float* s1, float* s2, int threads, cudaStream_t stream) {
-  return segsum::launch(perm, offsets, chunk_off, s, chunk, max_items, /*with_count=*/1,
-                        MaskedColumn<V, M>{(const V*)values, (const M*)mask, 1}, partial,
-                        StoreMoments{count, s1, s2}, threads, stream);
+template <class Idx>
+int by_value(const void* sidx, const void* values, const void* mask, int value_bf16,
+             int mask_float, int64_t n, int s, int tiles, int per, int32_t* marker, double* sums,
+             float* out, cudaStream_t st) {
+  return value_bf16 ? by_mask<Idx, __nv_bfloat16>(sidx, values, mask, mask_float, n, s, tiles,
+                                                  per, marker, sums, out, st)
+                    : by_mask<Idx, float>(sidx, values, mask, mask_float, n, s, tiles, per,
+                                          marker, sums, out, st);
 }
 
 }  // namespace
 
-// value_bf16: values are bf16 (else f32); mask_float: mask is f32 (else bool)
-extern "C" int stratified_stats_launch(const int32_t* perm, const int32_t* offsets,
-                                       const int32_t* chunk_off, const void* values,
-                                       const void* mask, int value_bf16, int mask_float, int s,
-                                       int chunk, int max_items, double* partial, float* count,
-                                       float* s1, float* s2, int threads, void* stream) {
+// index_64: stratum_idx is int64 (else int32); value_bf16: values are bf16
+// (else f32); mask_float: mask is f32 (else bool).  out is (3, S): count,
+// s1, s2.
+extern "C" int stratified_stats_launch(const void* sidx, const void* values, const void* mask,
+                                       int index_64, int value_bf16, int mask_float, int64_t n,
+                                       int s, int tiles, int per, int32_t* marker, double* sums,
+                                       float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (value_bf16) {
-    return mask_float
-        ? run<__nv_bfloat16, float>(perm, offsets, chunk_off, values, mask, s, chunk, max_items,
-                                    partial, count, s1, s2, threads, st)
-        : run<__nv_bfloat16, uint8_t>(perm, offsets, chunk_off, values, mask, s, chunk,
-                                      max_items, partial, count, s1, s2, threads, st);
-  }
-  return mask_float
-      ? run<float, float>(perm, offsets, chunk_off, values, mask, s, chunk, max_items, partial,
-                          count, s1, s2, threads, st)
-      : run<float, uint8_t>(perm, offsets, chunk_off, values, mask, s, chunk, max_items, partial,
-                            count, s1, s2, threads, st);
+  return index_64 ? by_value<int64_t>(sidx, values, mask, value_bf16, mask_float, n, s, tiles,
+                                      per, marker, sums, out, st)
+                  : by_value<int32_t>(sidx, values, mask, value_bf16, mask_float, n, s, tiles,
+                                      per, marker, sums, out, st);
 }

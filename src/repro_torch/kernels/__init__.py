@@ -4,8 +4,9 @@ kernel:
   geohash/      fused quantize + Morton interleave (elementwise)
   sample_mask/  per-stratum fraction gather from shared memory + Bernoulli
                 keep mask + Horvitz-Thompson weight
-  edge_reduce/  multi-column per-slot moment sums, deterministic (slot sort
-                + chunked warp reductions in double), behind
+  edge_reduce/  multi-column per-slot moment sums, deterministic (tiles
+                sorted by slot in shared memory, per-(tile, slot) records
+                in double added over the tiles in order), behind
                 ``PipelineConfig(backend="pallas")``
   edge_megakernel/  one pass that resolves each tuple's slot (sidx, or an
                 in-kernel geohash encode + code-table search), samples it by
@@ -25,12 +26,12 @@ kernel on a CUDA tensor, and the plain PyTorch version it takes on a CPU
 tensor) and ``ref.py`` (a numpy oracle).  The CUDA sources live in
 ``../csrc`` (device code shared between kernels in ``*.cuh`` headers);
 :mod:`.build` compiles and loads them at first use and counts launches.
-Launch shapes live in :mod:`.tiling`, the sort glue of the deterministic
-sums in :mod:`.segments`.
+Launch shapes and the tile planner of the sorted-tile kernels live in
+:mod:`.tiling`.
 """
 
 from . import (build, edge_megakernel, edge_reduce, flash_attention, geohash, sample_mask,
-               segments, stratified_stats, tiling)
+               stratified_stats, tiling)
 
 __all__ = ["build", "edge_megakernel", "edge_reduce", "flash_attention", "geohash",
-           "sample_mask", "segments", "stratified_stats", "tiling"]
+           "sample_mask", "stratified_stats", "tiling"]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  The sources need
-only the CUDA toolkit's own headers (CUB's block radix sort in the edge
-megakernel); flash attention's TMA tensor maps are encoded through the
+only the CUDA toolkit's own headers (CUB's block radix sort in the sorted-tile
+kernels: the edge megakernel, edge_reduce and stratified_stats); flash attention's TMA tensor maps are encoded through the
 runtime's driver entry point query, so no library links the driver.  Libraries go
 into ``_build/<hash>/`` inside the package (listed in ``.gitignore``),
 keyed by a hash of every source and header (``csrc/*.cuh``, shared device
@@ -51,9 +51,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "geohash": {"geohash_encode_launch": [_P, _P, _P, _L, _F, _F, _I, _I, _I, _I, _I, _P]},
     "sample_mask": {"sample_mask_launch": [_P, _P, _P, _L, _I, _P, _P, _I, _I, _P]},
-    "edge_reduce": {
-        "edge_reduce_launch": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    },
+    "edge_reduce": {"edge_reduce_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P]},
     "edge_megakernel": {
         "edge_megakernel_launch": [
             _P, _I, _I, _L, _I, _P, _L, _P, _L, _P, _I, _P, _L, _P, _P, _P, _I,
@@ -62,7 +60,7 @@ _SIGNATURES = {
         ],
     },
     "stratified_stats": {
-        "stratified_stats_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+        "stratified_stats_launch": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [

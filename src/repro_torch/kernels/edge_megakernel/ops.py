@@ -31,7 +31,7 @@ import torch
 from ...core import geohash
 from ...core.estimators import SKETCH_NUM_BINS, sketch_bin_index
 from .. import build
-from ..tiling import BLOCKS_PER_SM, MEGA_TILE
+from ..tiling import BLOCKS_PER_SM, plan_tiles
 
 class MegaResult(NamedTuple):
     """Per-member per-stratum sufficient stats from one fused traversal.
@@ -134,19 +134,6 @@ def _column_mask(idx: tuple, c: int, what: str) -> int:
     return sum(1 << i for i in idx)
 
 
-def _mega_tiles(n: int, slots: int) -> tuple[int, int]:
-    """(tiles, tuples per tile) of a window of ``n`` tuples: tiles of at most
-    ``MEGA_TILE``, at least one for each of the card's ``slots`` resident
-    blocks while a tile keeps 1024 tuples, and in whole waves of them, the
-    tuples spread evenly."""
-    if n == 0:
-        return 0, 0
-    tiles = max(-(-n // MEGA_TILE), min(slots, -(-n // 1024)))
-    if tiles > slots:
-        tiles = -(-tiles // slots) * slots
-    return tiles, -(-n // tiles)
-
-
 def edge_megakernel(vals, ok, scores, thresholds, num_slots: int, *, sidx=None, lat=None,
                     lon=None, codes=None, precision=None, ext_idx=(), sk_idx=()) -> MegaResult:
     """Single-traversal fused edge pass -> :class:`MegaResult`.
@@ -207,7 +194,7 @@ def edge_megakernel(vals, ok, scores, thresholds, num_slots: int, *, sidx=None, 
     # finish pass; popc (a record's presence) and the sketch bins start at
     # zero, in one fill.  The bins count as int32 and become f32 in place.
     ms = m * s
-    tiles, per = _mega_tiles(n, BLOCKS_PER_SM["edge_megakernel"] * build.num_sms(dev))
+    tiles, per = plan_tiles(n, BLOCKS_PER_SM["edge_megakernel"] * build.num_sms(dev))
     n_bins = ms * k * SKETCH_NUM_BINS
     counts = torch.zeros(n_bins + ms * tiles, dtype=torch.int32, device=dev)
     keepc = torch.empty(ms * tiles, dtype=torch.int32, device=dev)

@@ -4,9 +4,11 @@ plain PyTorch version.
 Both compute, for the stacked rows ``[m; m·y_c; (m·y_c)·y_c]`` (products in
 f32, the row layout of the reference kernel), per-slot sums accumulated in
 double and rounded to f32 once: the plain version with one ``index_add_``,
-the kernel (``csrc/edge_reduce.cu``) deterministically over a stable sort
-of the tuples by slot.  Counts agree exactly and sums to within an ulp.
-``stratum_idx`` values lie in ``[0, num_slots)``.
+the kernel (``csrc/edge_reduce.cu``) deterministically: tiles of the
+window sorted by slot in shared memory, one record per tile and slot, the
+records added over the tiles in order.  Counts agree exactly and sums to
+within an ulp.  ``stratum_idx`` values lie in ``[0, num_slots)``; the
+kernel drops any other.
 """
 
 from __future__ import annotations
@@ -14,8 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..segments import sorted_runs
-from ..tiling import SEGMENT_CHUNK, THREADS
+from ..tiling import BLOCKS_PER_SM, plan_tiles, record_words
 
 
 def _moment_rows(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -54,18 +55,18 @@ def edge_reduce(stratum_idx: torch.Tensor, values: torch.Tensor, mask: torch.Ten
     if stratum_idx.shape != (n,) or mask.shape != (n,):
         raise ValueError("stratum_idx and mask must be (N,) for values (C, N)")
     s = int(num_slots)
-    chunk = SEGMENT_CHUNK
-    # glue: stable sort by slot, each slot's run cut into chunks
-    perm, offsets, chunk_off, max_items = sorted_runs(stratum_idx, s, chunk)
-    partial = torch.empty((max_items, 1 + 2 * c), dtype=torch.float64, device=dev)
-    count = torch.empty(s, dtype=torch.float32, device=dev)
-    s1 = torch.empty((c, s), dtype=torch.float32, device=dev)
-    s2 = torch.empty((c, s), dtype=torch.float32, device=dev)
+    # scratch: the tiles' records (int32 markers, zeroed by the launch, then
+    # the double sums), from the caching allocator; one output buffer
+    tiles, per = plan_tiles(n, BLOCKS_PER_SM["edge_reduce"] * build.num_sms(dev))
+    marker_words, words = record_words(tiles, s, c)
+    scratch = torch.empty(words, dtype=torch.float64, device=dev)
+    out = torch.empty((1 + 2 * c) * s, dtype=torch.float32, device=dev)
     err = build.kernel("edge_reduce")(
-        perm.data_ptr(), offsets.data_ptr(), chunk_off.data_ptr(), values.data_ptr(),
-        mask.data_ptr(), n, c, s, chunk, max_items, partial.data_ptr(), count.data_ptr(),
-        s1.data_ptr(), s2.data_ptr(), THREADS["edge_reduce"], build.stream_handle(dev),
+        stratum_idx.data_ptr(), values.data_ptr(), mask.data_ptr(), n, c, s, tiles, per,
+        scratch.data_ptr(), scratch.data_ptr() + 8 * marker_words, out.data_ptr(),
+        build.stream_handle(dev),
     )
     build.check(err, "edge_reduce")
     build.LAUNCHES["edge_reduce"] += 1
-    return count, s1, s2
+    count, s1, s2 = out.split([s, c * s, c * s])
+    return count, s1.view(c, s), s2.view(c, s)

@@ -5,10 +5,11 @@ Both compute, for the rows ``[m, m·y, (m·y)·y]`` (``m`` the mask as f32,
 ``y`` the value as f32; products in f32, the row layout of the reference
 kernel), per-slot sums accumulated in double and rounded to f32 once: the
 plain version with one ``index_add_``, the kernel
-(``csrc/stratified_stats.cu``) deterministically over a stable sort of the
-tuples by slot.  Indices outside ``[0, num_slots)``, the ``-1`` padding
-included, contribute nothing.  Counts agree exactly (for a bool mask) and
-sums to within an ulp.
+(``csrc/stratified_stats.cu``) deterministically, as edge_reduce's kernel
+sums: tiles of the window sorted by slot in shared memory, one record per
+tile and slot, the records added over the tiles in order.  Indices outside
+``[0, num_slots)``, the ``-1`` padding included, contribute nothing.
+Counts agree exactly (for a bool mask) and sums to within an ulp.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..segments import sorted_runs
-from ..tiling import SEGMENT_CHUNK, THREADS
+from ..tiling import BLOCKS_PER_SM, plan_tiles, record_words
 
 
 def _slot_keys(stratum_idx: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -59,26 +59,27 @@ def stratified_stats(stratum_idx: torch.Tensor, values: torch.Tensor, mask: torc
                              f"got {tuple(t.shape)}")
     if stratum_idx.is_floating_point() or stratum_idx.dtype == torch.bool:
         raise ValueError(f"stratum_idx must be an integer tensor; got {stratum_idx.dtype}")
+    if stratum_idx.dtype not in (torch.int32, torch.int64):
+        stratum_idx = stratum_idx.to(torch.int64)  # (u)int8/16 and uint32 widen exactly
     if values.dtype not in (torch.float32, torch.bfloat16):
         values = values.to(torch.float32)
     if mask.dtype not in (torch.bool, torch.float32):
         mask = mask.to(torch.float32)
-    values, mask = values.contiguous(), mask.contiguous()
-    s = int(num_slots)
-    chunk = SEGMENT_CHUNK
-    # glue: out-of-range tuples sort past the last slot's run, so no work
-    # item covers them; each slot's run is cut into chunks
-    perm, offsets, chunk_off, max_items = sorted_runs(_slot_keys(stratum_idx, s), s, chunk)
-    partial = torch.empty((max_items, 3), dtype=torch.float64, device=dev)
-    count = torch.empty(s, dtype=torch.float32, device=dev)
-    s1 = torch.empty(s, dtype=torch.float32, device=dev)
-    s2 = torch.empty(s, dtype=torch.float32, device=dev)
+    stratum_idx, values, mask = stratum_idx.contiguous(), values.contiguous(), mask.contiguous()
+    s, n = int(num_slots), stratum_idx.shape[0]
+    # scratch as edge_reduce's at C = 1; the kernel maps an index outside
+    # [0, s) to its "none" key, which is never summed
+    tiles, per = plan_tiles(n, BLOCKS_PER_SM["stratified_stats"] * build.num_sms(dev))
+    marker_words, words = record_words(tiles, s, 1)
+    scratch = torch.empty(words, dtype=torch.float64, device=dev)
+    out = torch.empty(3 * s, dtype=torch.float32, device=dev)
     err = build.kernel("stratified_stats")(
-        perm.data_ptr(), offsets.data_ptr(), chunk_off.data_ptr(), values.data_ptr(),
-        mask.data_ptr(), int(values.dtype == torch.bfloat16), int(mask.dtype == torch.float32),
-        s, chunk, max_items, partial.data_ptr(), count.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-        THREADS["stratified_stats"], build.stream_handle(dev),
+        stratum_idx.data_ptr(), values.data_ptr(), mask.data_ptr(),
+        int(stratum_idx.dtype == torch.int64), int(values.dtype == torch.bfloat16),
+        int(mask.dtype == torch.float32), n, s, tiles, per, scratch.data_ptr(),
+        scratch.data_ptr() + 8 * marker_words, out.data_ptr(), build.stream_handle(dev),
     )
     build.check(err, "stratified_stats")
     build.LAUNCHES["stratified_stats"] += 1
+    count, s1, s2 = out.split([s, s, s])
     return count, s1, s2

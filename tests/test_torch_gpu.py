@@ -12,7 +12,9 @@ same bits on a second run.  The fused backend keeps the pallas backend's
 sample on the card, and the segment backend gives the same bits twice.  The
 stratified_stats kernel is held against its plain version like
 edge_reduce, over f32 and bf16 values, bool and float masks and indices
-out of range, and a session step on the card equals ``execute`` bit for
+out of range; both sorted-tile kernels also on windows below one tile, with
+a ragged last tile, at S = 1 and at the largest stratum table, and on a
+window one slot dominates; and a session step on the card equals ``execute`` bit for
 bit and the CPU's session within tolerance.  The
 flash-attention kernel is held against its plain version (the model's
 chunked attention) with the reference kernel test's tolerances (2e-5 f32,
@@ -73,7 +75,7 @@ def test_sample_mask_kernel_bit_exact(cuda):
 def test_edge_reduce_kernel_deterministic(cuda):
     rng = np.random.default_rng(8)
     n, c, s = 200_000, 3, 6558
-    # skewed slots: a few heavy runs longer than one chunk, many short ones
+    # skewed slots: a few heavy runs across thread ranges and tiles, many short ones
     sidx = torch.from_numpy(np.minimum((rng.random(n) ** 3 * s).astype(np.int32), s - 1))
     vals = torch.from_numpy(rng.normal(25, 8, (c, n)).astype(np.float32))
     mask = torch.from_numpy(rng.random(n) < 0.8)
@@ -232,6 +234,83 @@ def test_stratified_stats_kernel_deterministic_and_matches_plain(cuda, bf16, flo
         torch.testing.assert_close(g.cpu(), p, rtol=2e-6, atol=1e-3)
     if not float_mask:
         assert torch.equal(got[0].cpu(), plain[0])
+
+
+def _same_twice_and_plain(got, again, plain, exact_count: bool) -> None:
+    """Two kernel runs bitwise equal; sums within the reference's kernel-test
+    tolerance of the plain version; counts exact under a bool mask."""
+    for g, a, p in zip(got, again, plain):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.cpu(), p, rtol=2e-6, atol=1e-3)
+    if exact_count:
+        assert torch.equal(got[0].cpu(), plain[0])
+
+
+# (N, S): a window below one tile, one below 1024 tuples, one wave of short
+# tiles, two waves whose last tile is ragged (N not a multiple of the tile);
+# S = 1 and the largest stratum table (Shenzhen at Geohash-6)
+TILE_EDGES = [(1, 1), (100, 6558), (5000, 7), (300_000, 1), (8192 * 132 + 17, 6558)]
+
+
+@pytest.mark.parametrize("n,s", TILE_EDGES, ids=lambda v: str(v))
+def test_edge_reduce_kernel_at_tile_edges(cuda, n, s):
+    rng = np.random.default_rng(n + s)
+    args = [torch.from_numpy(rng.integers(0, s, n).astype(np.int32)),
+            torch.from_numpy(rng.normal(25, 8, (2, n)).astype(np.float32)),
+            torch.from_numpy(rng.random(n) < 0.8)]
+    build.reset_launches()
+    got = edge_reduce(*(a.to(cuda) for a in args), s)
+    again = edge_reduce(*(a.to(cuda) for a in args), s)
+    assert build.LAUNCHES["edge_reduce"] == 2
+    assert got[1].shape == got[2].shape == (2, s)
+    _same_twice_and_plain(got, again, edge_reduce_plain(*args, s), exact_count=True)
+
+
+@pytest.mark.parametrize("n,s", TILE_EDGES, ids=lambda v: str(v))
+def test_stratified_stats_kernel_at_tile_edges(cuda, n, s):
+    """bf16 values, a float mask, and indices at -1 and past the last slot."""
+    rng = np.random.default_rng(n + s + 1)
+    sidx = rng.integers(0, s, n)
+    pick = rng.random(n)
+    sidx[pick < 0.02] = -1
+    sidx[(pick >= 0.02) & (pick < 0.04)] = s + 3
+    args = [torch.from_numpy(sidx),
+            torch.from_numpy(rng.normal(25, 8, n).astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(rng.random(n).astype(np.float32))]
+    got = stratified_stats(*(a.to(cuda) for a in args), s)
+    again = stratified_stats(*(a.to(cuda) for a in args), s)
+    _same_twice_and_plain(got, again, stratified_stats_plain(*args, s), exact_count=False)
+
+
+@pytest.mark.parametrize("kernel", ["edge_reduce", "stratified_stats"])
+def test_tile_kernels_on_a_window_one_slot_dominates(cuda, kernel):
+    """Most tuples in one slot, so its run fills most of every tile and
+    crosses every thread's range; the rest spread over the largest table."""
+    rng = np.random.default_rng(22)
+    n, s = 250_000, 6558
+    hot = rng.random(n) < 0.85
+    sidx = torch.from_numpy(np.where(hot, 4321, rng.integers(0, s, n)).astype(np.int32))
+    mask = torch.from_numpy(rng.random(n) < 0.8)
+    vals = torch.from_numpy(rng.normal(25, 8, (2, n)).astype(np.float32))
+    if kernel == "edge_reduce":
+        fn, plain, args = edge_reduce, edge_reduce_plain, [sidx, vals, mask]
+    else:
+        fn, plain, args = stratified_stats, stratified_stats_plain, [sidx, vals[0], mask]
+    got = fn(*(a.to(cuda) for a in args), s)
+    again = fn(*(a.to(cuda) for a in args), s)
+    assert float(got[0].max()) > 0.8 * n * 0.85 * 0.95
+    _same_twice_and_plain(got, again, plain(*args, s), exact_count=True)
+
+
+def test_tile_kernels_refuse_records_above_the_budget(cuda):
+    n, s = 1_200_000, 400_000
+    sidx = torch.zeros(n, dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    vals = torch.ones((2, n), device=cuda)
+    with pytest.raises(ValueError, match="budget"):
+        edge_reduce(sidx, vals, mask, s)
+    with pytest.raises(ValueError, match="budget"):
+        stratified_stats(sidx, vals[0], mask, 4 * s)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "fused"])
